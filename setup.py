@@ -6,6 +6,8 @@ setup(
     description=("TPU-native (JAX/XLA/Pallas) monocular 3D object detection "
                  "with ground-plane polling"),
     packages=find_packages(exclude=("tests",)),
+    # the PyTorch port's CUDA sources, compiled at first use
+    package_data={"ground_plane_polling_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "scipy", "Pillow"],
@@ -27,6 +29,8 @@ setup(
             "ground_plane_polling_tpu.bin.logs_to_tb:main",
             "gpp-tpu-serve="
             "ground_plane_polling_tpu.bin.serve:main",
+            "gpp-torch-run-network="
+            "ground_plane_polling_tpu_torch.bin.run_network:main",
         ],
     },
 )
