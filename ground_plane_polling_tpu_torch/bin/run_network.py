@@ -54,27 +54,27 @@ def parse_args(argv):
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--image-min-side", type=int, default=800)
     p.add_argument("--image-max-side", type=int, default=1333)
+    p.add_argument("--fuse-towers", action="store_true",
+                   help="run the cls+dim heads as one block-diagonal tower "
+                        "(identical outputs)")
     # options of the JAX CLI that the port does not have yet
     p.add_argument("--save-images", action="store_true",
-                   help="not ported yet (ROADMAP A10)")
+                   help="not ported yet (ROADMAP A10b)")
     p.add_argument("--int8", type=int, nargs="?", const=8, default=0,
                    help="not ported yet (ROADMAP A16)")
-    p.add_argument("--fuse-towers", action="store_true",
-                   help="not ported yet (ROADMAP A11)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    for flag, item in (("save_images", "A10"), ("int8", "A16"),
-                       ("fuse_towers", "A11")):
+    for flag, item in (("save_images", "A10b"), ("int8", "A16")):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet "
                 f"(ROADMAP {item})")
     if args.model_path.endswith((".h5", ".hdf5")):
         raise NotImplementedError(
-            ".h5 weights: the Keras import is ROADMAP A10; convert them to "
+            ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
             ".npz with the JAX package's convert-model")
 
     import scipy.io
@@ -82,11 +82,11 @@ def main(argv=None):
 
     from ..data.frames import prepare_network_frame
     from ..data.planes import load_plane_database
-    from ..inference import make_detect_fn, place_model
+    from ..inference import make_detect_fn, place_model, require_device
     from ..models import build_detector, load_weights
     from ..utils.kitti_writer import write_kitti_file
 
-    device = torch.device(args.device)
+    device = require_device(args.device)
     if not args.bf16:  # float32 means float32: no TF32 in convs or matmuls
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,7 +97,8 @@ def main(argv=None):
             cfg = json.load(f)
     backbone = args.backbone or cfg.get("backbone", "resnet50")
     num_classes = cfg.get("num_classes", 1)
-    model = load_weights(build_detector(backbone, num_classes),
+    model = load_weights(build_detector(backbone, num_classes,
+                                        fuse_cls_dim=args.fuse_towers),
                          args.model_path)
     model = place_model(model, device,
                         torch.bfloat16 if args.bf16 else torch.float32)

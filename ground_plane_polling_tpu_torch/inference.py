@@ -30,7 +30,8 @@ from .ops import anchors as anchor_ops
 from .ops.filtering import filter_detections_fused_batch
 from .ops.pose import solve_pose
 
-__all__ = ["DetectionOutput", "make_detect_fn", "place_model", "GPPDetector"]
+__all__ = ["DetectionOutput", "make_detect_fn", "place_model",
+           "require_device", "GPPDetector"]
 
 
 class DetectionOutput(NamedTuple):
@@ -133,6 +134,16 @@ def make_detect_fn(
     return detect
 
 
+def require_device(device) -> torch.device:
+    """torch.device(device), refusing a CUDA device that is not there: a
+    run that asks for the card never carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} was asked for, but CUDA is not "
+                           "available")
+    return device
+
+
 def place_model(model, device, dtype=torch.float32):
     """Move a detector to `device` in `dtype` for inference; on CUDA it runs
     channels-last (NHWC in memory), which cuDNN prefers."""
@@ -151,11 +162,10 @@ class GPPDetector:
                  dtype: torch.dtype = torch.float32, fuse_towers: bool = False,
                  device_preprocess: bool = True, device="cpu",
                  **filter_kwargs):
-        if fuse_towers:
-            raise NotImplementedError("fuse_towers: ROADMAP A11")
-        self.device = torch.device(device)
-        self.model = place_model(build_detector(backbone, num_classes),
-                                 self.device, dtype)
+        self.device = require_device(device)
+        self.model = place_model(
+            build_detector(backbone, num_classes, fuse_cls_dim=fuse_towers),
+            self.device, dtype)
         self.backbone = backbone
         self.num_classes = num_classes
         self.device_preprocess = device_preprocess
@@ -170,10 +180,11 @@ class GPPDetector:
         return self.model
 
     def load(self, weights_path: str):
-        """Load the JAX package's exported `.npz` weights, strictly."""
+        """Load the JAX package's exported `.npz` weights, strictly; with
+        fused towers, split weights are converted on load."""
         if weights_path.endswith((".h5", ".hdf5")):
             raise NotImplementedError(
-                ".h5 weights: the Keras import is ROADMAP A10; convert them "
+                ".h5 weights: the Keras import is ROADMAP A10b; convert them "
                 "to .npz with the JAX package's convert-model")
         load_weights(self.model, weights_path)
         self.ready = True

@@ -7,12 +7,17 @@ conv kernels go from HWIO to OIHW, and each FrozenBatchNorm's
 scale/bias/mean/var (eps 1e-5) becomes its per-channel scale and shift.
 Module names mirror the Flax tree, so the mapping is by name.
 `export_jax_params` writes the same layout back from a model (frozen BN as
-gamma = scale, beta = shift, mean 0, var 1 - eps).
+gamma = scale, beta = shift, mean 0, var 1 - eps); a fused model writes the
+`params/clsdim/...` tree that the JAX package's fused model reads.
+`fuse_detector_params` turns a split state dict into the fused one, and
+`load_weights` applies it when the model has fused towers.
 
 `init_detector` makes random weights from a seed with the JAX package's
 init semantics: lecun_normal trunk and FPN convs, N(0, 0.01) tower and
 out convs, zero biases, a zero classification out kernel with the
-prior-probability bias, and identity frozen BN.
+prior-probability bias, and identity frozen BN. The fused out conv keeps
+that meaning per block: prior bias and a zero kernel on the classification
+channels, N(0, 0.01) on the dimension block, zero elsewhere.
 """
 
 from __future__ import annotations
@@ -24,9 +29,10 @@ import torch
 
 from .common import (BN_EPS, PRIOR_PROB_BIAS, FrozenBatchNorm,
                      frozen_bn_affine)
+from .heads import fuse_cls_dim_params
 
-__all__ = ["load_jax_params", "export_jax_params", "load_npz",
-           "load_weights", "init_detector"]
+__all__ = ["load_jax_params", "export_jax_params", "fuse_detector_params",
+           "load_npz", "load_weights", "init_detector"]
 
 _BN_FIELDS = ("scale", "bias", "mean", "var")
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -91,10 +97,39 @@ def export_jax_params(model: torch.nn.Module) -> dict:
     return flat
 
 
+def fuse_detector_params(state: dict) -> dict:
+    """Split detector state dict -> the fused-towers one: the
+    'classification.*' and 'regression_dim.*' entries become one 'clsdim.*'
+    head (heads.fuse_cls_dim_params); everything else passes through. A
+    fused state dict comes back unchanged."""
+    if any(k.startswith("clsdim.") for k in state):
+        return dict(state)
+    heads = {"classification": {}, "regression_dim": {}}
+    out = {}
+    for key, value in state.items():
+        head, _, rest = key.partition(".")
+        if head in heads:
+            heads[head][rest] = value
+        else:
+            out[key] = value
+    if not all(heads.values()):
+        raise ValueError(
+            "fuse_detector_params expects a split detector state dict with "
+            "'classification' and 'regression_dim' head entries; got "
+            f"{sorted({k.partition('.')[0] for k in state})}")
+    fused = fuse_cls_dim_params(heads["classification"],
+                                heads["regression_dim"])
+    out.update({f"clsdim.{k}": v for k, v in fused.items()})
+    return out
+
+
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Strictly load an exported `.npz` into `model`: every array is used
-    and every module weight is filled, or this raises."""
+    and every module weight is filled, or this raises. A model with fused
+    towers takes split weights (converted here) or fused ones."""
     state = load_jax_params(load_npz(path))
+    if getattr(model, "fuse_cls_dim", False):
+        state = fuse_detector_params(state)
     ref = model.state_dict()
     missing = sorted(set(ref) - set(state))
     unexpected = sorted(set(state) - set(ref))
@@ -111,7 +146,7 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
 def init_detector(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Seeded random weights with the JAX package's init semantics."""
     gen = torch.Generator().manual_seed(seed)
-    heads = ("regression.", "classification.", "regression_dim.")
+    heads = ("regression.", "classification.", "regression_dim.", "clsdim.")
     for name, module in model.named_modules():
         if isinstance(module, FrozenBatchNorm):
             scale, shift = frozen_bn_affine(
@@ -126,6 +161,10 @@ def init_detector(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         w = torch.empty(module.weight.shape)
         if name == "classification.cls_out":
             w.zero_()
+        elif name == "clsdim.clsdim_out":
+            cls_ch, cls_width = model.clsdim.cls_ch, model.clsdim.cls_width
+            w.zero_()
+            w[cls_ch:, cls_width:].normal_(0.0, 0.01, generator=gen)
         elif name.startswith(heads):
             w.normal_(0.0, 0.01, generator=gen)
         else:  # lecun_normal: truncated normal, variance 1 / fan_in
@@ -137,4 +176,6 @@ def init_detector(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         if module.bias is not None:
             module.bias.fill_(PRIOR_PROB_BIAS if name == "classification.cls_out"
                               else 0.0)
+        if name == "clsdim.clsdim_out":
+            module.bias[:model.clsdim.cls_ch] = PRIOR_PROB_BIAS
     return model

@@ -31,6 +31,14 @@ setup(
             "ground_plane_polling_tpu.bin.serve:main",
             "gpp-torch-run-network="
             "ground_plane_polling_tpu_torch.bin.run_network:main",
+            "gpp-torch-serve="
+            "ground_plane_polling_tpu_torch.bin.serve:main",
+            "gpp-torch-evaluate="
+            "ground_plane_polling_tpu_torch.bin.evaluate:main",
+            "gpp-torch-evaluate-3d="
+            "ground_plane_polling_tpu_torch.bin.evaluate_3d:main",
+            "gpp-torch-convert-model="
+            "ground_plane_polling_tpu_torch.bin.convert_model:main",
         ],
     },
 )

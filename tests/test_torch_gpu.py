@@ -1,7 +1,8 @@
-"""The PyTorch port's CUDA kernels on the card, against their plain PyTorch
-versions. Every test here needs a CUDA device (`gpu` marker) and skips
-without one. The file imports nothing of JAX, so it also runs where JAX is
-not installed:
+"""The PyTorch port on the card: its CUDA kernels against their plain
+PyTorch versions, fused against split heads, and serve --once against the
+same run on the CPU. Every test here needs a CUDA device (`gpu` marker)
+and skips without one. The file imports nothing of JAX, so it also runs
+where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -m gpu -q
 
@@ -64,3 +65,116 @@ def test_polling_kernel_refuses_empty_database(cuda):
     args = args[:4] + (args[4][:, :0],)
     with pytest.raises(ValueError, match="empty"):
         _fit(polling_cuda.fit_road_planes, args, cuda)
+
+
+@pytest.fixture
+def tf32_off():
+    """float32 means float32 on the card; the flags are restored after."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _seeded_detector(fuse_cls_dim=False, cls_std=0.05):
+    """ResNet-50, FPN 512, seeded init with the classification out kernel
+    redrawn from N(0, cls_std), so that detections pass 0.05."""
+    from ground_plane_polling_tpu_torch.models import (build_detector,
+                                                       init_detector)
+
+    model = init_detector(build_detector("resnet50"), 0)
+    out = model.classification.cls_out
+    with torch.no_grad():
+        out.weight.copy_(torch.randn(out.weight.shape,
+                                     generator=torch.Generator()
+                                     .manual_seed(0)) * cls_std)
+        out.bias.zero_()
+    if fuse_cls_dim:
+        from ground_plane_polling_tpu_torch.models import fuse_detector_params
+
+        fused = build_detector("resnet50", fuse_cls_dim=True)
+        fused.load_state_dict(fuse_detector_params(model.state_dict()))
+        return fused
+    return model
+
+
+@pytest.mark.gpu
+def test_fused_heads_match_split_on_the_card(cuda, tf32_off):
+    """Fused and split heads on the card in float32, TF32 off: rtol 1e-3,
+    atol 1e-3 of the largest magnitude (chip_smoke's card-vs-CPU
+    tolerance; the wider fused convolution sums in another order)."""
+    from ground_plane_polling_tpu_torch.inference import place_model
+
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -128, 128, (2, 3, 128, 416)).astype(np.float32)).to(cuda)
+    outs = []
+    for fuse in (False, True):
+        net = place_model(_seeded_detector(fuse), cuda)
+        with torch.inference_mode():
+            outs.append({k: v.cpu().numpy() for k, v in net(x).items()})
+    for key, ref in outs[0].items():
+        np.testing.assert_allclose(outs[1][key], ref, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(ref).max()),
+                                   err_msg=key)
+
+
+@pytest.mark.gpu
+def test_serve_once_on_the_card(cuda, tmp_path, tf32_off):
+    """serve --once on the card writes one KITTI txt per frame, and they
+    hold the CPU run's rows: types equal, 2D boxes and scores within the
+    txt's rounding plus 1e-2 (card and CPU sum convolutions in another
+    order)."""
+    import contextlib
+    import io
+    import json
+
+    from PIL import Image
+
+    from ground_plane_polling_tpu_torch.bin import serve
+    from ground_plane_polling_tpu_torch.data.planes import save_plane_database
+    from ground_plane_polling_tpu_torch.models import export_jax_params
+
+    rng = np.random.RandomState(0)
+    img, cal = tmp_path / "img", tmp_path / "cal"
+    img.mkdir()
+    cal.mkdir()
+    P2 = np.array([[200.0, 0.0, 208.0, 1.2], [0.0, 200.0, 64.0, 0.1],
+                   [0.0, 0.0, 1.0, 0.002]])
+    calib = "".join(f"P{i}: " + " ".join(
+        f"{v:.12e}" for v in (P2 if i == 2 else np.zeros((3, 4))).ravel())
+        + "\n" for i in range(4))
+    for i in range(3):
+        Image.fromarray(rng.randint(0, 256, (128, 416, 3)).astype(
+            np.uint8)).save(img / f"{i:06d}.png")
+        (cal / f"{i:06d}.txt").write_text(calib)
+    planes = str(tmp_path / "planes.mat")
+    save_plane_database(planes, np.array([[0.0, 1.0, 0.0, -1.65],
+                                          [0.01, 1.0, 0.0, -1.5]]))
+    weights = str(tmp_path / "model.npz")
+    # N(0, 0.01): scores well apart, so card and CPU rank rows alike
+    np.savez(weights, **export_jax_params(_seeded_detector(cls_std=0.01)))
+    with open(weights + ".json", "w") as f:
+        json.dump({"backbone": "resnet50", "num_classes": 1}, f)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = serve.main([weights, str(img), str(cal), planes, str(out),
+                            "--once", "--no-bf16", "--device", device,
+                            "--image-min-side", "64", "--image-max-side",
+                            "224"])
+        assert n == 3
+        rows[device] = {p.name: [r.split() for r in
+                                 p.read_text().splitlines()]
+                        for p in sorted(out.iterdir())}
+    assert sorted(rows["cuda"]) == [f"{i:06d}.txt" for i in range(3)]
+    for name, want in rows["cpu"].items():
+        got = rows["cuda"][name]
+        assert len(got) == len(want) > 0, name
+        assert [r[0] for r in got] == [r[0] for r in want]
+        g = np.array([r[4:8] + r[15:16] for r in got], float)
+        w = np.array([r[4:8] + r[15:16] for r in want], float)
+        np.testing.assert_allclose(g, w, rtol=0, atol=0.02, err_msg=name)

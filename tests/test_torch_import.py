@@ -44,6 +44,58 @@ def test_port_imports_with_jax_blocked():
     assert proc.stdout.strip().endswith("ok")
 
 
+def _run_blocked(body, tmp_path):
+    """Run `body` in a fresh interpreter with JAX and the JAX package
+    blocked; returns its stdout."""
+    code = (
+        "import sys\n"
+        f"for m in {_BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n" + body)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+@pytest.mark.parametrize("cli", ["serve", "evaluate", "evaluate_3d",
+                                 "convert_model", "run_network"])
+def test_cli_help_with_jax_blocked(cli, tmp_path):
+    out = _run_blocked(
+        "import runpy\n"
+        f"sys.argv = ['{cli}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('ground_plane_polling_tpu_torch.bin.{cli}',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n", tmp_path)
+    assert out.startswith("usage: ")
+
+
+def test_evaluate_3d_and_convert_model_run_with_jax_blocked(tmp_path):
+    """The two CLIs that need no model run end to end without JAX."""
+    row = ("Car 0.00 0 0.00 100.00 100.00 200.00 180.00 1.50 1.60 4.00 "
+           "0.00 1.65 20.00 0.00")
+    for d in ("gt", "det"):
+        (tmp_path / d).mkdir()
+    (tmp_path / "gt" / "000000.txt").write_text(row + "\n")
+    (tmp_path / "det" / "000000.txt").write_text(row + " 0.9\n")
+    out = _run_blocked(
+        "import json, numpy as np\n"
+        "from ground_plane_polling_tpu_torch.bin import (convert_model,\n"
+        "                                                evaluate_3d)\n"
+        "res = evaluate_3d.main(['gt', 'det', '--metrics', 'bbox'])\n"
+        "print('AP', res['Car']['bbox']['moderate'])\n"
+        "np.savez('in.npz', **{\n"
+        "    'params/regression/box_out/bias': np.zeros(144, np.float32),\n"
+        "    'params/classification/cls_out/bias': np.zeros(96, np.float32)})\n"
+        "convert_model.main(['in.npz', 'out.npz'])\n"
+        "print('classes', json.load(open('out.npz.json'))['num_classes'])\n",
+        tmp_path)
+    assert "AP " in out and "classes 1" in out
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|flax)\b|from\s+(jax|flax)\b)|"
     r"ground_plane_polling_tpu\.|\bjax\b", re.MULTILINE)

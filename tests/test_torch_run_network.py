@@ -56,7 +56,9 @@ def cli_outputs(tmp_path_factory):
              "--image-max-side", "224"]
     runs = {"jax": (jax_run_network, []),
             "torch_b1": (run_network, ["--device", "cpu"]),
-            "torch_b2": (run_network, ["--device", "cpu", "--batch", "2"])}
+            "torch_b2": (run_network, ["--device", "cpu", "--batch", "2"]),
+            "torch_fused": (run_network, ["--device", "cpu",
+                                          "--fuse-towers"])}
     outputs = {}
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
@@ -153,9 +155,27 @@ def test_port_batch_2_matches_batch_1(cli_outputs):
                                        rtol=rtol, err_msg=f"{fn} {key}")
 
 
+def test_port_fuse_towers_matches_split(cli_outputs):
+    """--fuse-towers (one block-diagonal cls+dim tower) writes what the
+    split heads write: labels equal, scores within 1e-6, the other fields
+    within the batch-2 test's tolerances."""
+    for fn, (rows, m1) in cli_outputs["torch_b1"].items():
+        rows_f, mf = cli_outputs["torch_fused"][fn]
+        assert len(rows_f) == len(rows), fn
+        np.testing.assert_array_equal(mf["labels"], m1["labels"])
+        np.testing.assert_allclose(mf["scores"], m1["scores"], atol=1e-6,
+                                   rtol=0)
+        for key, atol, rtol in (("boxes", 2e-3, 0), ("keypoints", 2e-3, 0),
+                                ("residuals", 1e-3, 0), ("angles", 2e-2, 0),
+                                ("keypoints3d", 0.5, 2e-3),
+                                ("locations", 0.5, 2e-3),
+                                ("dimensions", 0.5, 2e-3)):
+            np.testing.assert_allclose(mf[key], m1[key], atol=atol,
+                                       rtol=rtol, err_msg=f"{fn} {key}")
+
+
 @pytest.mark.parametrize("flag,item", [("--int8", "A16"),
-                                       ("--fuse-towers", "A11"),
-                                       ("--save-images", "A10")])
+                                       ("--save-images", "A10b")])
 def test_unported_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         run_network(["m.npz", str(tmp_path), str(tmp_path), "p.mat",
@@ -163,6 +183,6 @@ def test_unported_flags_raise(tmp_path, flag, item):
 
 
 def test_h5_weights_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         run_network(["m.h5", str(tmp_path), str(tmp_path), "p.mat",
                      str(tmp_path)])
