@@ -160,8 +160,9 @@ class GPPDetector:
 
     def __init__(self, backbone: str = "resnet50", num_classes: int = 1,
                  dtype: torch.dtype = torch.float32, fuse_towers: bool = False,
-                 device_preprocess: bool = True, device="cpu",
+                 device_preprocess: bool = True, device="cuda",
                  **filter_kwargs):
+        # the card unless the caller asks for the CPU; no card raises
         self.device = require_device(device)
         self.model = place_model(
             build_detector(backbone, num_classes, fuse_cls_dim=fuse_towers),

@@ -13,7 +13,8 @@ import torch
 
 from ..ops import polling as twin
 
-__all__ = ["K", "P_INV", "scene", "random_case", "crafted_cases"]
+__all__ = ["K", "P_INV", "scene", "random_case", "crafted_cases",
+           "straddle_cases"]
 
 # KITTI-like intrinsics (a 1242 x 375 camera)
 K = np.array([[720.0, 0.0, 620.0], [0.0, 720.0, 190.0], [0.0, 0.0, 1.0]])
@@ -82,9 +83,10 @@ def _ground(s):
 _NAN_PLANE = [0.3, 0.0, 0.2, -1.0]  # b == 0 normalizes to NaN
 
 
-def _winding_planes(kp2, dims):
-    """From a seeded pool, planes A (wrong winding), B (right winding, same
-    vote count, larger raw residual below 100) and C (fewer votes)."""
+def _pool_scores(kp2, dims):
+    """A seeded pool of 20,000 planes and, for one detection, each plane's
+    votes, raw residual and winding; `ok` marks finite residuals with a
+    winding well away from 0."""
     rng = np.random.RandomState(7)
     n = 20000
     pool = np.stack([rng.uniform(-1, 1, n),
@@ -97,7 +99,13 @@ def _winding_planes(kp2, dims):
     votes, res, wind, _ = twin.poll_scoreboard(
         rays, expected, twin.normalize_planes(args[4]))
     votes, res, wind = (t[0, 0].numpy() for t in (votes, res, wind))
-    ok = np.isfinite(res) & (np.abs(wind) > 1e-3)
+    return pool, votes, res, wind, np.isfinite(res) & (np.abs(wind) > 1e-3)
+
+
+def _winding_planes(kp2, dims):
+    """From the pool, planes A (wrong winding), B (right winding, same vote
+    count, larger raw residual below 100) and C (fewer votes)."""
+    pool, votes, res, wind, ok = _pool_scores(kp2, dims)
     for level in range(6, 0, -1):
         a = np.flatnonzero(ok & (votes == level) & (wind < 0) & (res < 90))
         c = np.flatnonzero(ok & (votes < level))
@@ -109,6 +117,21 @@ def _winding_planes(kp2, dims):
         if len(bb):
             return pool[ia], pool[bb[0]], pool[c[0]]
     raise RuntimeError("no winding edge case in the plane pool")
+
+
+def _tie_planes(kp2, dims):
+    """From the pool, at the highest vote level that has all three: planes
+    A (wrong winding, scores 100), C (fewer votes, scores 100) and F (right
+    winding, raw residual above 100: loses to both, a filler)."""
+    pool, votes, res, wind, ok = _pool_scores(kp2, dims)
+    for level in range(6, 0, -1):
+        a = np.flatnonzero(ok & (votes == level) & (wind < 0))
+        c = np.flatnonzero(ok & (votes < level))
+        f = np.flatnonzero(ok & (votes == level) & (wind > 0) & (res > 110)
+                           & (res < 1e4))
+        if len(a) and len(c) and len(f):
+            return pool[a[0]], pool[c[0]], pool[f[0]]
+    raise RuntimeError("no tie edge case in the plane pool")
 
 
 def crafted_cases():
@@ -151,4 +174,56 @@ def crafted_cases():
     orients[:, 2:] = -1
     cases.append(("padded_rows", (boxes, dims_r, orients, P_inv, planes),
                   None))
+    return cases
+
+
+def _straddle_edges():
+    """The edges of crafted_cases as (name, dimensions, competing planes in
+    order, filler, index of the winner among the competitors); the filler
+    can never win against them."""
+    h, w, l = 1.5, 1.7, 4.2
+    kp2, _ = scene(h, w, l)
+    dims = (h, w, l)
+    a, b, c = _winding_planes(kp2, dims)
+    ta, tc, tf = _tie_planes(kp2, dims)
+    return kp2, [
+        # 1 vote, residual > 100, loses to the first 0-vote plane (100);
+        # the filler has 1 vote and a larger residual
+        ("lower_votes_beat_residual_above_100", (60.0, w, l),
+         [_ground(40), _ground(0.01), _ground(0.02)], _ground(40.3), 1),
+        ("equal_residuals_first_index", dims, [_ground(1), _ground(1)],
+         _ground(0.5), 0),
+        ("nan_at_top_level", dims, [_ground(0.01), _NAN_PLANE, _NAN_PLANE],
+         _ground(0.01), 1),
+        ("nan_below_top_level", dims, [_NAN_PLANE, _ground(1)],
+         _ground(0.5), 1),
+        ("wrong_winding_at_top_level", dims, [c, a, b], c, 2),
+        ("wrong_winding_ties_lower_first", dims, [ta, tc], tf, 0),
+        ("lower_ties_wrong_winding_first", dims, [tc, ta], tf, 0),
+    ]
+
+
+def straddle_cases(p):
+    """The edges of the fused reduction with the competing planes in
+    different splits of a P-plane database: at index 0, on both sides of
+    the first split boundary and last, among filler planes. The splits are
+    as many as leave MIN_SPLIT_PLANES planes a split, the plan for one
+    detection on a card that holds that many blocks at once. Returns
+    [(name, args, expected index, splits)], args in the order of
+    fit_road_planes."""
+    from .polling_cuda import MIN_SPLIT_PLANES
+
+    splits = -(-p // MIN_SPLIT_PLANES)
+    edge = -(-p // splits)  # the first split boundary
+    kp2, edges = _straddle_edges()
+    placements = {2: {"boundary": (edge - 1, edge), "ends": (0, p - 1)},
+                  3: {"first": (0, edge - 1, edge),
+                      "last": (edge - 1, edge, p - 1)}}
+    cases = []
+    for name, dims, planes, filler, winner in edges:
+        for where, at in placements[len(planes)].items():
+            db = np.tile(np.asarray(filler, np.float32), (p, 1))
+            db[list(at)] = planes
+            cases.append((f"{name}@{where}/P{p}", _one(kp2, dims, db),
+                          at[winner], splits))
     return cases

@@ -165,3 +165,14 @@ def test_gpp_detector_detect_image(tmp_path):
     np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-5)
     np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=1e-5,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"device": "cuda"},
+                                    {"device": "cuda:0"}])
+def test_gpp_detector_defaults_to_the_card(monkeypatch, kwargs):
+    """GPPDetector runs on the card unless asked for the CPU: without CUDA
+    it raises rather than carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.GPPDetector(**kwargs)
+    assert inference.GPPDetector(device="cpu").device == torch.device("cpu")

@@ -309,7 +309,7 @@ def test_gpp_detector_fuse_towers_matches_split(resnet50_weights):
                       np.float32)[None]
     outs = {}
     for fuse in (False, True):
-        det = GPPDetector(fuse_towers=fuse)
+        det = GPPDetector(fuse_towers=fuse, device="cpu")
         det.load(resnet50_weights)
         assert hasattr(det.model, "clsdim") == fuse
         outs[fuse] = {k: v.numpy() for k, v in

@@ -38,14 +38,67 @@ def _assert_poll_close(got, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 100, 1024), (2, 5, 13),
-                                   (4, 100, 4000)])
+@pytest.mark.parametrize("shape", [
+    (1, 100, 1024), (2, 5, 13), (4, 100, 4000),
+    (1, 100, 21634),  # the main path's b1
+    (2, 9, 1000),     # P not a multiple of the 1,024-plane tile
+    (1, 4, 1),        # one plane
+    (1, 7, 300),      # D not a multiple of the 8 detections of a block
+    (3, 10, 700),     # B = 3
+])
 def test_polling_kernel_matches_twin(cuda, shape):
     args = polling_cases.random_case(np.random.RandomState(0), *shape)
     before = polling_cuda.LAUNCHES
     got = _fit(polling_cuda.fit_road_planes, args, cuda)
     assert polling_cuda.LAUNCHES == before + 1
     _assert_poll_close(got, _fit(twin.fit_road_planes, args, cuda))
+
+
+def _tensors(args, device):
+    return [torch.from_numpy(np.asarray(a)).to(device) for a in args]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,splits", [
+    ((2, 6, 5), 8), ((2, 6, 5), 40),    # splits that hold no plane
+    ((1, 5, 2500), 1), ((1, 5, 2500), 2),  # several tiles, the last ragged
+])
+def test_polling_kernel_forced_splits(cuda, shape, splits):
+    """Empty splits merge as empty states; a split longer than a tile
+    walks its tiles in order."""
+    args = _tensors(polling_cases.random_case(np.random.RandomState(1),
+                                              *shape), cuda)
+    got = polling_cuda._launch(*args, splits=splits)
+    _assert_poll_close([g.cpu().numpy() for g in got],
+                       [r.cpu().numpy() for r in twin.fit_road_planes(*args)])
+
+
+@pytest.mark.gpu
+def test_polling_kernel_widens_bf16_and_int64(cuda):
+    """bf16 boxes, dimensions, P_inv and planes and int64 orientations are
+    widened in the kernel: the twin on the same values in float32."""
+    args = _tensors(polling_cases.random_case(np.random.RandomState(2),
+                                              2, 20, 500), cuda)
+    narrow = [args[0].bfloat16(), args[1].bfloat16(), args[2].long(),
+              args[3].bfloat16(), args[4].bfloat16()]
+    wide = [narrow[0].float(), narrow[1].float(), args[2],
+            narrow[3].float(), narrow[4].float()]
+    got = polling_cuda.fit_road_planes(*narrow)
+    assert all(g.dtype == torch.float32 for g in got)
+    _assert_poll_close([g.cpu().numpy() for g in got],
+                       [r.cpu().numpy() for r in twin.fit_road_planes(*wide)])
+
+
+@pytest.mark.gpu
+def test_polling_kernel_without_detections_does_not_launch(cuda):
+    args = _tensors(polling_cases.random_case(np.random.RandomState(0),
+                                              2, 3, 10), cuda)
+    args = [args[0][:, :0], args[1][:, :0], args[2][:, :0], args[3], args[4]]
+    before = polling_cuda.LAUNCHES
+    got = polling_cuda.fit_road_planes(*args)
+    assert polling_cuda.LAUNCHES == before
+    assert [tuple(g.shape) for g in got] == [(2, 0, 4, 3), (2, 0, 1, 4),
+                                             (2, 0)]
 
 
 @pytest.mark.gpu
@@ -65,6 +118,21 @@ def test_polling_kernel_refuses_empty_database(cuda):
     args = args[:4] + (args[4][:, :0],)
     with pytest.raises(ValueError, match="empty"):
         _fit(polling_cuda.fit_road_planes, args, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", polling_cases.straddle_cases(4099)
+    + polling_cases.straddle_cases(21634), ids=lambda c: c[0])
+def test_polling_kernel_straddle_cases(cuda, case):
+    """The competing planes in different splits: with the splits the case
+    was built for, and with the wrapper's own plan."""
+    name, args, want, splits = case
+    ref = _fit(twin.fit_road_planes, args, "cpu")
+    t = _tensors(args, cuda)
+    for got in (polling_cuda._launch(*t, splits=splits),
+                polling_cuda.fit_road_planes(*t)):
+        _assert_poll_close([g.cpu().numpy() for g in got], ref)
 
 
 @pytest.fixture

@@ -98,22 +98,58 @@ def test_wrapper_uses_twin_on_cpu_without_launching():
 
 
 @pytest.mark.parametrize("bad", ["float64_expected", "planes_width_3",
-                                 "rays_width_2"])
+                                 "rays_width_2", "float16_boxes",
+                                 "float_orientations", "empty_database",
+                                 "cpu_tensors"])
 def test_kernel_launch_checks_inputs_before_building(bad):
     """The launch path refuses what the kernel does not take, before it
-    builds or launches anything."""
-    rays, expected, planes = (torch.zeros(2, 3, 4, 3), torch.zeros(2, 3, 6),
-                              torch.zeros(2, 5, 4))
+    builds or launches anything: dimensions (whence the expected
+    distances) in float64, planes 3 wide, boxes (whence the rays) 2 wide,
+    float16 boxes, float orientations, an empty plane database, and
+    tensors off the card."""
+    args = dict(boxes=torch.zeros(2, 3, 12), dimensions=torch.zeros(2, 3, 3),
+                orientations=torch.zeros(2, 3, dtype=torch.int32),
+                P_inv=torch.zeros(2, 4, 3), planes=torch.zeros(2, 5, 4))
+    match = {"float64_expected": "takes", "planes_width_3": "shapes",
+             "rays_width_2": "shapes", "float16_boxes": "takes",
+             "float_orientations": "takes", "empty_database": "empty",
+             "cpu_tensors": "CUDA device"}[bad]
     if bad == "float64_expected":
-        expected = expected.double()
+        args["dimensions"] = args["dimensions"].double()
     elif bad == "planes_width_3":
-        planes = planes[..., :3]
-    else:
-        rays = rays[..., :2]
+        args["planes"] = args["planes"][..., :3]
+    elif bad == "rays_width_2":
+        args["boxes"] = args["boxes"][..., :2]
+    elif bad == "float16_boxes":
+        args["boxes"] = args["boxes"].half()
+    elif bad == "float_orientations":
+        args["orientations"] = args["orientations"].float()
+    elif bad == "empty_database":
+        args["planes"] = args["planes"][:, :0]
     before = polling_cuda.LAUNCHES
-    with pytest.raises(ValueError, match="polling"):
-        polling_cuda._launch(rays, expected, planes)
+    with pytest.raises(ValueError, match=match):
+        polling_cuda._launch(**args)
     assert polling_cuda.LAUNCHES == before
+
+
+# the kernel's 8 detections per block, 4 resident blocks on each of an
+# H100's 132 SMs
+@pytest.mark.parametrize("b,d,p,warps,wave,want", [
+    (1, 100, 21634, 8, 132 * 4, 40),   # one wave at b1
+    (4, 100, 21634, 8, 132 * 4, 10),   # one wave at b4
+    (1, 1, 4099, 8, 132 * 4, 33),      # capped at 128 planes a split
+    (1, 3, 5, 8, 132 * 4, 1),          # fewer planes than a split holds
+    (64, 100, 21634, 8, 132 * 4, 1),   # more groups than a wave
+    (2, 0, 10, 8, 132 * 4, 1),         # no detections
+    (1, 100, 21634, 4, 132 * 8, 42),   # 4 detections a block, 8 per SM
+])
+def test_plan_splits(b, d, p, warps, wave, want):
+    s = polling_cuda.plan_splits(b, d, p, warps, wave)
+    assert s == want
+    groups = b * -(-d // warps)
+    assert s == 1 or groups * s <= wave
+    if (b, d, p) == (1, 100, 21634):  # at least two blocks per SM
+        assert groups * s >= 2 * 132
 
 
 def test_wrapper_refuses_mixed_devices():
@@ -122,3 +158,124 @@ def test_wrapper_refuses_mixed_devices():
     args[4] = args[4].to("meta")
     with pytest.raises(ValueError, match="several devices"):
         polling_cuda.fit_road_planes(*args)
+
+
+STRADDLE = polling_cases.straddle_cases(4099) + polling_cases.straddle_cases(
+    21634)
+
+
+@pytest.mark.parametrize("case", STRADDLE, ids=lambda c: c[0])
+def test_twin_straddle_cases(case):
+    """The crafted edges with the competing planes at index 0, on both
+    sides of a split boundary and last, among fillers: the twin,
+    fit_road_planes and the Pallas kernel agree and pick the plane the
+    case was built for."""
+    name, args, want, _ = case
+    got = _torch_fit(args)
+    _assert_poll_close(got, jax_fit(*args))
+    _assert_poll_close(got, fit_road_planes_pallas(*args))
+    want_plane = np.asarray(jax_normalize(args[4][0, want]))
+    np.testing.assert_allclose(got[1][0, 0, 0], want_plane, rtol=1e-6,
+                               atol=1e-7)
+
+
+# A numpy model of the kernel's state algebra (csrc/polling.cu: PollState,
+# add_plane, merge and the final pick), run over random splits of the plane
+# axis, lanes that stride over each split, and random merge orders.
+NONE = 2**31 - 1
+KEY100 = int(np.float32(100.0).view(np.uint32)) + 1
+
+
+def _key(res):
+    return 0 if np.isnan(res) else int(np.float32(res).view(np.uint32)) + 1
+
+
+def _empty():
+    return [-1, 2**32 - 1, NONE, NONE, NONE]  # level, key, best, first, low
+
+
+def _add_plane(s, level, res, idx):
+    key = _key(res)
+    if level > s[0]:
+        s[:] = [level, key, idx, idx, min(s[4], s[3])]
+    elif level == s[0]:
+        if key < s[1]:
+            s[1], s[2] = key, idx
+    else:
+        s[4] = min(s[4], idx)
+
+
+def _merge(a, b):
+    if b[0] > a[0]:
+        low = min(a[4], a[3], b[4])
+        a[:] = b
+        a[4] = low
+    elif b[0] == a[0]:
+        if (b[1], b[2]) < (a[1], a[2]):
+            a[1], a[2] = b[1], b[2]
+        a[3], a[4] = min(a[3], b[3]), min(a[4], b[4])
+    else:
+        a[4] = min(a[4], b[3], b[4])
+
+
+def _pick(s):
+    key, best = s[1], s[2]
+    if s[4] != NONE and (KEY100, s[4]) < (key, best):
+        key, best = KEY100, s[4]
+    res = np.nan if key == 0 else float(np.uint32(key - 1).view(np.float32))
+    return best, res
+
+
+def _model_pick(votes, res, rng, splits):
+    """The kernel's winner of one row: `splits` splits of the plane axis cut
+    at random points, 32 lanes striding over each split, lanes and splits
+    merged in random orders."""
+    p = len(votes)
+    cuts = np.sort(rng.randint(0, p + 1, splits - 1))
+    bounds = np.concatenate([[0], cuts, [p]])
+    states = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        lanes = [_empty() for _ in range(32)]
+        for i in range(lo, hi):
+            _add_plane(lanes[(i - lo) % 32], int(votes[i]), res[i], i)
+        states += lanes
+    rng.shuffle(states)
+    while len(states) > 1:  # a random tree of merges
+        i = rng.randint(len(states) - 1)
+        _merge(states[i], states.pop(i + 1))
+    return _pick(states[0])
+
+
+def _model_cases():
+    cases = [(f"random{shape}", _random_case(np.random.RandomState(sum(shape)),
+                                            *shape))
+             for shape in ((2, 16, 40), (1, 5, 13), (3, 7, 300))]
+    cases += [(name, args) for name, args, _ in polling_cases.crafted_cases()]
+    cases += [(name, args) for name, args, _, _ in
+              polling_cases.straddle_cases(4099)]
+    return cases
+
+
+@pytest.mark.parametrize("case", _model_cases(), ids=lambda c: c[0])
+def test_state_algebra_matches_twin_argmin(case):
+    """Over random split points and merge orders, the state algebra picks
+    the plane and residual of the twin's vote-gated arg-min on every row."""
+    _, args = case
+    t = [torch.from_numpy(np.asarray(a)) for a in args]
+    votes, res, wind, _ = twin.poll_scoreboard(
+        twin.rays_from_boxes(t[0], t[3]), twin.expected_distances(t[1], t[2]),
+        twin.normalize_planes(t[4]))
+    res = torch.where(wind < 0.0, twin.DISQUALIFIED_RESIDUAL, res)
+    out = twin.fit_road_planes(*t)
+    gated = torch.where(votes < votes.amax(-1, keepdim=True),
+                        twin.DISQUALIFIED_RESIDUAL, res)
+    best = torch.argmin(gated, dim=-1).numpy()
+    votes, res = votes.numpy(), res.numpy()
+    rng = np.random.RandomState(0)
+    p = votes.shape[-1]
+    for bi, di in np.ndindex(votes.shape[:2]):
+        for splits in (1, 2, min(p, 7), min(p, 33)):
+            idx, r = _model_pick(votes[bi, di], res[bi, di], rng, splits)
+            assert idx == best[bi, di], (bi, di, splits)
+            np.testing.assert_array_equal(np.float32(r) / np.float32(6),
+                                          out.residuals[bi, di].numpy())
