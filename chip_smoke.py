@@ -32,8 +32,19 @@ Phases (any failure exits non-zero before the last line):
      and the bf16 forward alone with CUDA events;
   6. evaluate on a 4-frame prepared split written here (labels from the
      detections): --eval-batch 1, --eval-batch 4 and --fuse-towers give
-     equal mAP and errors.
-Phases 4-6 each drive their path with the polling kernel's launch count
+     equal mAP and errors;
+  7. training on a prepared split of 375x1242 frames with random boxes:
+     (a) the train step at full width (ResNet-50, FPN 512, bf16 autocast,
+     augmentation, fused prepare, batch 2, 416x1344), 20 steps timed with
+     CUDA events after 3 warm-up steps, with img/s, peak memory, FLOPs a
+     step and finite loss terms, and no host-device synchronization in a
+     step (torch.cuda's sync debug mode); (b) 30 steps on one fixed batch, whose
+     loss must fall; (c) one float32 step of a shrunk model on the card
+     and on the CPU: loss terms within rtol 1e-4, each post-clip gradient
+     within 1e-3 of its tensor's norm; (d) bin/train for one epoch of 4
+     steps with the validation sweep, then --snapshot auto carries the
+     step count on.
+Phases 4-7 each drive their path with the polling kernel's launch count
 set to 0 and fail if the kernel was not launched.
 
 Prints the kernel table as one JSON line, then as the last line
@@ -41,6 +52,7 @@ Prints the kernel table as one JSON line, then as the last line
 Imports nothing of JAX.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -799,6 +811,285 @@ def phase6_evaluate(torch, polling_cuda, tmp, cli):
     return results
 
 
+TRAIN_BATCH = 2
+TRAIN_SIDES = (800, 1333)  # --image-min-side, --image-max-side: 416x1344
+TRAIN_WARMUP, TRAIN_TIMED = 3, 20
+LEARN_STEPS, LEARN_LR = 30, 1e-4
+SHRUNK_STAGES, SHRUNK_FPN = (1, 1, 1, 1), 64
+
+
+def write_train_split(tmp, cli, n_train=8, n_val=2):
+    """A prepared KITTI split (train/ and val/) of 375x1242 frames with 3-5
+    boxes each (random 20-field labels, as prepare-data writes them) and a
+    21,634-plane database; returns its root."""
+    from ground_plane_polling_tpu_torch.data.planes import save_plane_database
+
+    root = os.path.join(tmp, "kitti_train")
+    rng = np.random.RandomState(SEED + 8)
+    for subset, n in (("train", n_train), ("val", n_val)):
+        frames = [np.roll(cli["base"], int(rng.randint(1, 1242)), axis=1)
+                  for _ in range(n)]
+        write_frames(root, subset, frames)
+        label_dir = os.path.join(root, subset, "labels")
+        os.makedirs(label_dir)
+        for i in range(n):
+            rows = []
+            for _ in range(rng.randint(3, 6)):
+                w, h = rng.uniform(60, 300), rng.uniform(40, 150)
+                x1, y1 = rng.uniform(0, 1242 - w), rng.uniform(100, 375 - h)
+                kx = rng.uniform(x1, x1 + w, 4)
+                ky = rng.uniform(y1, y1 + h, 4)
+                kp = np.stack([kx, ky], 1).ravel()
+                dims = rng.uniform([1.4, 1.5, 3.5], [1.8, 1.9, 4.8])
+                rows.append("Car 0.00 0 0.00 " + " ".join(
+                    f"{v:.2f}" for v in (x1, y1, x1 + w, y1 + h, *kp, *dims))
+                    + f" {rng.randint(4)}")
+            with open(os.path.join(label_dir, f"{i:06d}.txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+    save_plane_database(os.path.join(root, "road_planes_database.mat"),
+                        synthetic_planes(rng, N_PLANES))
+    return root
+
+
+def train_model(torch, dev, stages=None, features=512, cls_std=None):
+    """Seeded detector (ResNet-50 and FPN 512 unless shrunk), float32
+    parameters on `dev`, channels-last on the card."""
+    from ground_plane_polling_tpu_torch.models import (GPPRetinaNet,
+                                                       build_detector,
+                                                       init_detector)
+    from ground_plane_polling_tpu_torch.models.resnet import ResNetBackbone
+
+    model = (build_detector("resnet50") if stages is None else GPPRetinaNet(
+        ResNetBackbone(stages), feature_size=features))
+    init_detector(model, SEED)
+    if cls_std is not None:  # gradients through the classification tower
+        out = model.classification.cls_out
+        w = np.random.RandomState(SEED).normal(0.0, cls_std, out.weight.shape)
+        with torch.no_grad():
+            out.weight.copy_(torch.from_numpy(w.astype(np.float32)))
+    model = model.to(dev)
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
+def host_syncs(torch, fn):
+    """fn()'s result and, for each synchronizing CUDA operation it made,
+    the file:line of the Python code that called it."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def phase7_train(torch, polling_cuda, tmp, cli, smi):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ground_plane_polling_tpu_torch.data.kitti import KittiDataset
+    from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer,
+        make_train_step)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    root = write_train_split(tmp, cli)
+    log("phase 7a: train step, ResNet-50, FPN 512, one class, seeded, bf16 "
+        f"autocast, augmentation, fused prepare, batch {TRAIN_BATCH}, "
+        f"375x1242 frames on a {CANVAS[0]}x{CANVAS[1]} canvas")
+    sides = dict(image_min_side=TRAIN_SIDES[0], image_max_side=TRAIN_SIDES[1])
+    loader = KittiLoader(KittiDataset(root, "train"), batch_size=TRAIN_BATCH,
+                         augment=True, raw_batches=True, seed=SEED,
+                         device=dev, **sides)
+    assert loader.image_shape == CANVAS, loader.image_shape
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < n:  # host loading apart from the step's time
+        batches += list(loader.epoch(prefetch=0))[:n - len(batches)]
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    model = train_model(torch, dev)
+    state = create_train_state(model, make_optimizer(model, 1e-5))
+    step = make_fused_train_step(loader=loader, bf16=True)
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as flops:  # a warm-up step
+        state, _ = step(state, batches[0])
+    for raw in batches[1:TRAIN_WARMUP - 1]:
+        state, _ = step(state, raw)
+    # the last warm-up step under torch.cuda's sync debug mode: where the
+    # host waits for the card inside a step (a copy from pageable memory, a
+    # read-back), it cannot queue ahead of the card
+    torch.cuda.synchronize()
+    (state, _), syncs = host_syncs(
+        torch, lambda: step(state, batches[TRAIN_WARMUP - 1]))
+    torch.cuda.synchronize()
+    assert not syncs, f"the train step waits for the card at {syncs}"
+    events, metrics = [], []
+    t0 = time.perf_counter()
+    for raw in batches[TRAIN_WARMUP:]:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, raw)
+        stop.record()
+        events.append((start, stop))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    peak = torch.cuda.max_memory_allocated()
+    terms = {k: torch.stack([m[k] for m in metrics]).float().cpu().numpy()
+             for k in metrics[0]}
+    for k, v in terms.items():
+        assert np.isfinite(v).all(), (k, v)
+    assert state.step == n
+    med, p90 = float(np.median(ms)), float(np.percentile(ms, 90))
+    step_flops = flops.get_total_flops()
+    result = {"median_ms": med, "p90_ms": p90, "host_syncs": len(syncs),
+              "img_s": TRAIN_BATCH / med * 1e3,
+              "window_img_s": TRAIN_BATCH * TRAIN_TIMED / window,
+              "peak_gib": peak / 2**30, "host_ms_per_batch": host_ms,
+              "step_tflop": step_flops / 1e12}
+    log(f"  {smi}: step median {med:.3f} ms, p90 {p90:.3f} ms (CUDA events "
+        f"around each of {TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up "
+        f"steps), {result['img_s']:.2f} img/s at the median, "
+        f"{result['window_img_s']:.2f} img/s over the window (host clock, "
+        f"synchronized); peak memory {result['peak_gib']:.3f} GiB "
+        "(max_memory_allocated)")
+    log(f"  {smi}: {result['step_tflop']:.4f} TFLOP a step (FlopCounterMode: "
+        "convolutions and matmuls, forward and backward), "
+        f"{step_flops / (med * 1e-3) / 989e12:.1%} of 989 TFLOP/s bf16 at "
+        "the median step; host loading (decode, resize, pad, draw) "
+        f"{host_ms:.1f} ms a batch, not in the step")
+    log(f"  host-device synchronizations in a step: {len(syncs)} "
+        "(torch.cuda.set_sync_debug_mode('warn') over one warm-up step)"
+        + "".join(f"; {n} at {where}" for where, n in
+                  sorted(collections.Counter(syncs).items())))
+    log("  loss terms over the timed steps, first / last: " + ", ".join(
+        f"{k} {v[0]:.5g} / {v[-1]:.5g}" for k, v in terms.items()))
+    # where the step's time goes: device work against the step's time
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for raw in batches[-n_prof:]:
+            state, _ = step(state, raw)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3 / n_prof
+    result.update(device_busy_ms=busy_ms,
+                  kernels_per_step=len(on_device) / n_prof)
+    log(f"  device busy {busy_ms:.3f} ms a step (kernels and copies, "
+        f"torch.profiler over {n_prof} steps), {busy_ms / med:.1%} of the "
+        f"median step; {len(on_device) / n_prof:.0f} kernels and copies a "
+        "step")
+    del state, model, step, batches
+
+    log(f"phase 7b: learning check, {LEARN_STEPS} steps on one fixed batch, "
+        f"no augmentation, bf16, lr {LEARN_LR:g}")
+    fixed = next(iter(KittiLoader(
+        KittiDataset(root, "train"), batch_size=TRAIN_BATCH,
+        raw_batches=True, shuffle=False, device=dev,
+        **sides).epoch(prefetch=0)))
+    model = train_model(torch, dev)
+    state = create_train_state(model, make_optimizer(model, LEARN_LR))
+    step = make_fused_train_step(num_classes=1, augment=False, bf16=True)
+    losses = []
+    for _ in range(LEARN_STEPS):
+        state, m = step(state, fixed)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).float().cpu().numpy()
+    assert np.isfinite(losses).all(), losses
+    assert losses[-5:].min() < losses[0], losses
+    log(f"  loss {losses[0]:.5g} -> {losses[-1]:.5g} (smallest of the last "
+        f"five {losses[-5:].min():.5g}); every 5th: "
+        + " ".join(f"{v:.4g}" for v in losses[::5]))
+    del state, model, step
+
+    log("phase 7c: one float32 step, TF32 off, card against CPU: ResNet "
+        f"stages {SHRUNK_STAGES}, FPN {SHRUNK_FPN}, 64x224, batch "
+        f"{TRAIN_BATCH}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = next(iter(KittiLoader(
+        KittiDataset(root, "train"), batch_size=TRAIN_BATCH,
+        image_min_side=64, image_max_side=224, shuffle=False,
+        device="cpu").epoch(prefetch=0)))
+    assert tuple(small["image"].shape[1:3]) == (64, 224)
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = train_model(torch, device, SHRUNK_STAGES, SHRUNK_FPN,
+                            cls_std=0.05)
+        state = create_train_state(model, make_optimizer(model, 1e-5))
+        state, m = make_train_step()(state, {k: v.to(device)
+                                              for k, v in small.items()})
+        runs[name] = ({k: float(v) for k, v in m.items()},
+                      {n_: p.grad.cpu() for n_, p in
+                       model.named_parameters()})
+    (got, got_g), (want, want_g) = runs["cuda"], runs["cpu"]
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-4 * abs(v), (k, got[k], v)
+    worst = 0.0
+    for k, g in want_g.items():
+        norm = float(g.norm())
+        gap = float((got_g[k] - g).abs().max())
+        assert gap <= 1e-3 * norm, (k, gap, norm)
+        worst = max(worst, gap / norm if norm else 0.0)
+    log("  loss terms card / CPU: " + ", ".join(
+        f"{k} {got[k]:.7g} / {v:.7g}" for k, v in want.items())
+        + " (rtol 1e-4)")
+    log(f"  post-clip gradients: largest |card - CPU| over the tensor's norm "
+        f"{worst:.3e} over {len(want_g)} tensors (bound 1e-3)")
+
+    log("phase 7d: bin/train on the split, bf16, augmentation: 1 epoch of 4 "
+        "steps with the validation sweep, then --snapshot auto")
+    from ground_plane_polling_tpu_torch.bin import train as train_cli
+    from ground_plane_polling_tpu_torch.training.checkpoint import (
+        latest_checkpoint)
+
+    snaps = os.path.join(tmp, "snapshots")
+    common = ["--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--steps",
+              "4", "--bf16", "--random-transform", "--device", "cuda",
+              "--snapshot-path", snaps, "--log-path",
+              os.path.join(tmp, "train_log.jsonl"), "--image-min-side",
+              str(TRAIN_SIDES[0]), "--image-max-side", str(TRAIN_SIDES[1])]
+    polling_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = train_cli.main(common + ["kitti", root])
+    launches = polling_cuda.LAUNCHES
+    record = buf.getvalue().strip().splitlines()[-1]
+    assert launches > 0, "the validation sweep did not launch the kernel"
+    assert state.step == 4, state.step
+    ckpt = latest_checkpoint(snaps)
+    assert ckpt and ckpt.endswith("step_00000004.pt"), ckpt
+    log(f"  epoch: {time.perf_counter() - t0:.2f} s wall (init, 4 steps, "
+        f"validation, checkpoint), {launches} polling launches in the "
+        f"validation sweep; {record}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_cli.main(common + ["--snapshot", "auto",
+                                         "--no-evaluation", "kitti", root])
+    assert state.step == 8, state.step
+    ckpt = latest_checkpoint(snaps)
+    assert ckpt.endswith("step_00000008.pt"), ckpt
+    log(f"  --snapshot auto: resumed at step 4, ended at step {state.step}, "
+        f"{os.path.basename(ckpt)} written ({time.perf_counter() - t0:.2f} "
+        "s wall)")
+    log(f"  phase 7 wall: {time.perf_counter() - t_phase:.2f} s")
+    return result
+
+
 def main():
     import torch
 
@@ -828,6 +1119,7 @@ def main():
         phase4_serve(torch, polling_cuda, tmp, cli)
         phase5_fused(torch, polling_cuda)
         phase6_evaluate(torch, polling_cuda, tmp, cli)
+        phase7_train(torch, polling_cuda, tmp, cli, smi)
 
     print(smi)
     print(json.dumps({"kernels": [{

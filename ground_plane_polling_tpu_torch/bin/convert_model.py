@@ -1,11 +1,12 @@
-"""Convert exported weights into an inference artifact (port of
-ground_plane_polling_tpu/bin/convert_model.py for the .npz route): the flat
-`params/...` + `frozen/...` arrays are written unchanged to a new .npz, with
-a JSON sidecar that describes them (backbone, num_classes and the filter
-flags that run_network, serve and evaluate read).
+"""Convert exported weights or a training checkpoint into an inference
+artifact (port of ground_plane_polling_tpu/bin/convert_model.py for the
+.npz route): the flat `params/...` + `frozen/...` arrays of an .npz, or the
+model of a `step_*.pt` that bin/train wrote, are written to a new .npz,
+with a JSON sidecar that describes them (backbone, num_classes and the
+filter flags that run_network, serve and evaluate read).
 
   python -m ground_plane_polling_tpu_torch.bin.convert_model \
-      in.npz model_out.npz --no-nms
+      snapshots/step_00001234.pt model_out.npz --no-nms
 
 num_classes comes from the flag, else from the classification head width,
 else from the input's sidecar; a flag that contradicts the weights raises.
@@ -22,7 +23,8 @@ import sys
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="Export inference weights.")
-    p.add_argument("checkpoint", help="an exported .npz weight file")
+    p.add_argument("checkpoint", help="an exported .npz weight file or a "
+                                      "step_*.pt training checkpoint")
     p.add_argument("model_out", help="output .npz (+ .json sidecar)")
     p.add_argument("--backbone", default=None,
                    help="default: the input's .json sidecar if present, "
@@ -65,21 +67,23 @@ def main(argv=None):
         if path.endswith((".h5", ".hdf5")):
             raise NotImplementedError(
                 f"{path}: Keras .h5 interop is ROADMAP A10b")
-    if not args.checkpoint.endswith(".npz"):
+    if not args.checkpoint.endswith((".npz", ".pt")):
         raise NotImplementedError(
-            f"{args.checkpoint}: training checkpoints are ROADMAP A14; "
-            "give an exported .npz")
+            f"{args.checkpoint}: JAX orbax checkpoints are ROADMAP A14; "
+            "give an exported .npz or a step_*.pt of bin/train")
 
     import numpy as np
 
     from ..models.weights import load_npz
+    from ..training.checkpoint import checkpoint_params
 
     in_cfg = {}
     if os.path.exists(args.checkpoint + ".json"):
         with open(args.checkpoint + ".json") as f:
             in_cfg = json.load(f)
     backbone = args.backbone or in_cfg.get("backbone", "resnet50")
-    flat = load_npz(args.checkpoint)
+    flat = (checkpoint_params(args.checkpoint)
+            if args.checkpoint.endswith(".pt") else load_npz(args.checkpoint))
 
     inferred, cls_out_ch, num_anchors = _inferred_num_classes(flat)
     # precedence: flag > weights > input sidecar (a stale sidecar must not

@@ -1,0 +1,173 @@
+"""Training CLI (port of ground_plane_polling_tpu/bin/train.py): train a GPP
+detector on a prepared KITTI split (train/ and val/ as prepare-data writes
+them), on the card unless --device says otherwise.
+
+  python -m ground_plane_polling_tpu_torch.bin.train --batch-size 2 \
+      --epochs 50 --random-transform --bf16 --snapshot-path ./snapshots \
+      kitti /data/kitti
+
+The model is the seeded init (seed 0, as the JAX CLI's PRNGKey(0)) or
+--weights x.npz (the JAX package's export). --snapshot auto resumes from
+the newest checkpoint under --snapshot-path. Training steps prepare each batch (augmentation, anchor
+targets) inside the step (--fused-prepare, the default) or in the loader's
+producer thread (--no-fused-prepare); the validation sweep runs the
+detector, polling kernel included, after each epoch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description="Train a GPP detector.")
+    sub = p.add_subparsers(dest="dataset_type")
+    kitti = sub.add_parser("kitti")
+    kitti.add_argument("kitti_path",
+                       help="Path to the prepared dataset (train/val dirs).")
+
+    p.add_argument("--backbone", default="resnet50")
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--steps", type=int, default=None,
+                   help="Steps per epoch (default: full dataset).")
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--snapshot", default=None,
+                   help="Resume from this checkpoint file, or 'auto' for "
+                        "the newest under --snapshot-path.")
+    p.add_argument("--snapshot-path", default="./snapshots")
+    p.add_argument("--no-snapshots", action="store_true")
+    p.add_argument("--snapshot-every", type=int, default=1,
+                   help="checkpoint every N epochs (the last epoch always)")
+    p.add_argument("--sync-snapshots", action="store_true",
+                   help="save checkpoints synchronously (default: a writer "
+                        "thread, after a copy on the device)")
+    p.add_argument("--freeze-backbone", action="store_true")
+    p.add_argument("--random-transform", action="store_true")
+    p.add_argument("--image-min-side", type=int, default=800)
+    p.add_argument("--image-max-side", type=int, default=1333)
+    p.add_argument("--no-evaluation", action="store_true")
+    p.add_argument("--weights", default=None,
+                   help="Initialize from an exported .npz weight file.")
+    p.add_argument("--fused-prepare", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="augmentation + anchor targets inside the train "
+                        "step (default); --no-fused-prepare prepares in the "
+                        "loader's producer thread")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute under autocast (params stay f32); "
+                        "without it float32 with TF32 off")
+    p.add_argument("--log-path", default="training_log.jsonl")
+    p.add_argument("--compat-height-only-dim-loss", action="store_true",
+                   help="Reproduce the reference's height-only dim loss.")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "versions of the kernels)")
+    # options of the JAX CLI that the port does not have yet
+    p.add_argument("--data-parallel", action="store_true",
+                   help="not ported yet (ROADMAP A15)")
+    p.add_argument("--remat", action="store_true",
+                   help="not ported yet (ROADMAP A17)")
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="not ported yet (ROADMAP A17)")
+    p.add_argument("--backbone-h5", default=None,
+                   help="not ported yet (ROADMAP A10b)")
+    p.add_argument("--imagenet-weights", action="store_true",
+                   help="not ported (ROADMAP A17; no download)")
+    return p.parse_args(argv)
+
+
+_UNPORTED = (("data_parallel", "A15"), ("remat", "A17"),
+             ("tensorboard_dir", "A17"), ("backbone_h5", "A10b"),
+             ("imagenet_weights", "A17"))
+
+
+def main(argv=None):
+    args = parse_args(argv if argv is not None else sys.argv[1:])
+    if args.dataset_type != "kitti":
+        raise SystemExit("only the kitti dataset is supported (like the "
+                         "reference's implemented subset)")
+    for flag, item in _UNPORTED:
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet "
+                f"(ROADMAP {item})")
+    if args.weights and args.weights.endswith((".h5", ".hdf5")):
+        raise NotImplementedError(
+            ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
+            ".npz with the JAX package's convert-model")
+
+    import torch
+
+    from ..data.kitti import KittiDataset
+    from ..data.pipeline import KittiLoader
+    from ..inference import require_device
+    from ..models import RESNET_STAGES, build_detector, init_detector
+    from ..models import load_weights
+    from ..training.checkpoint import latest_checkpoint, restore_checkpoint
+    from ..training.loop import fit
+    from ..training.train import (create_train_state, make_fused_train_step,
+                                  make_optimizer, make_train_step)
+
+    if args.backbone not in RESNET_STAGES:
+        raise NotImplementedError(
+            f"backbone {args.backbone!r}: the port has "
+            f"{sorted(RESNET_STAGES)}; other backbones are ROADMAP A17")
+    device = require_device(args.device)
+    if not args.bf16:
+        # float32 means float32: no TF32 in convs or matmuls
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    train_ds = KittiDataset(args.kitti_path, "train")
+    train_loader = KittiLoader(
+        train_ds, batch_size=args.batch_size,
+        image_min_side=args.image_min_side,
+        image_max_side=args.image_max_side,
+        augment=args.random_transform,
+        raw_batches=args.fused_prepare, device=device)
+    val_loader = None
+    if not args.no_evaluation:
+        val_loader = KittiLoader(
+            KittiDataset(args.kitti_path, "val"),
+            image_min_side=args.image_min_side,
+            image_max_side=args.image_max_side, shuffle=False, device=device)
+
+    model = build_detector(args.backbone, num_classes=train_ds.num_classes)
+    if args.weights:
+        load_weights(model, args.weights)
+    else:
+        init_detector(model, 0)
+    model = model.to(device)
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    optimizer = make_optimizer(model, args.lr,
+                               freeze_backbone=args.freeze_backbone)
+    state = create_train_state(model, optimizer)
+    if args.snapshot == "auto":
+        latest = latest_checkpoint(args.snapshot_path)
+        if latest:
+            print(f"resuming from {latest}")
+            state = restore_checkpoint(latest, state)
+    elif args.snapshot:
+        state = restore_checkpoint(args.snapshot, state)
+
+    step_kwargs = dict(compat_height_only=args.compat_height_only_dim_loss,
+                       bf16=args.bf16)
+    if args.fused_prepare:
+        step = make_fused_train_step(loader=train_loader, **step_kwargs)
+    else:
+        step = make_train_step(**step_kwargs)
+
+    return fit(
+        model, state, step, train_loader,
+        epochs=args.epochs, steps_per_epoch=args.steps,
+        val_loader=val_loader, num_classes=train_ds.num_classes,
+        checkpoint_dir=None if args.no_snapshots else args.snapshot_path,
+        checkpoint_every=args.snapshot_every, log_path=args.log_path,
+        async_checkpoints=not args.sync_snapshots)
+
+
+if __name__ == "__main__":
+    main()

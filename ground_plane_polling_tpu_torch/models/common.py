@@ -49,4 +49,7 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("shift", shift)
 
     def forward(self, x):
-        return x * self.scale[:, None, None] + self.shift[:, None, None]
+        # in the input's dtype: under bf16 autocast the conv output is
+        # bf16, and float32 buffers would lift every activation to f32
+        return (x * self.scale.to(x.dtype)[:, None, None]
+                + self.shift.to(x.dtype)[:, None, None])

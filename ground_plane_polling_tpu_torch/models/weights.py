@@ -77,23 +77,31 @@ def load_jax_params(flat: dict) -> dict:
 def export_jax_params(model: torch.nn.Module) -> dict:
     """Model -> the flat `params/...` / `frozen/...` arrays of the JAX
     package's export (inverse of `load_jax_params` up to float rounding)."""
+    return state_to_jax_params(model.state_dict())
+
+
+def state_to_jax_params(state: dict) -> dict:
+    """A detector's state dict (conv weights and biases, FrozenBN scale and
+    shift) -> the JAX package's flat export, as `export_jax_params`."""
     flat = {}
-    for name, module in model.named_modules():
+    for key, value in state.items():
+        name, _, field = key.rpartition(".")
         path = name.replace(".", "/")
-        if isinstance(module, torch.nn.Conv2d):
+        value = value.detach().float().cpu()
+        if field == "weight" and value.ndim == 4:
             flat[f"params/{path}/kernel"] = (
-                module.weight.detach().float().cpu().permute(2, 3, 1, 0)
-                .numpy().copy())
-            if module.bias is not None:
-                flat[f"params/{path}/bias"] = (
-                    module.bias.detach().float().cpu().numpy().copy())
-        elif isinstance(module, FrozenBatchNorm):
-            scale = module.scale.detach().float().cpu().numpy()
+                value.permute(2, 3, 1, 0).numpy().copy())
+        elif field == "bias":
+            flat[f"params/{path}/bias"] = value.numpy().copy()
+        elif field == "scale":
+            scale = value.numpy()
             flat[f"frozen/{path}/scale"] = scale.copy()
-            flat[f"frozen/{path}/bias"] = (
-                module.shift.detach().float().cpu().numpy().copy())
             flat[f"frozen/{path}/mean"] = np.zeros_like(scale)
             flat[f"frozen/{path}/var"] = np.full_like(scale, 1.0 - BN_EPS)
+        elif field == "shift":
+            flat[f"frozen/{path}/bias"] = value.numpy().copy()
+        else:
+            raise ValueError(f"cannot export state entry {key!r}")
     return flat
 
 

@@ -1,11 +1,12 @@
-"""Box / keypoint / dimension decoding (inference half of
+"""Box / keypoint / dimension encoding and decoding (port of
 ground_plane_polling_tpu/ops/box_coder.py).
 
 The detector regresses, per anchor, 12 values: the 2D box corners
 (x1, y1, x2, y2) and four image keypoints (xl, yl, xm, ym, xr, yr, xt, yt).
 The x offsets of the "middle" and "top" keypoints are absolute magnitudes
 relative to the anchor centre; which side they fall on comes from the sign
-half of the classification output.
+half of the classification output; `encode_boxes` returns it as
+(sign(dxm) + 1) / 2, which is 0.5 when xm lies exactly on the anchor centre.
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["BOX_MEAN", "BOX_STD", "DIM_MEAN", "DIM_STD", "decode_boxes",
-           "decode_dims"]
+__all__ = ["BOX_MEAN", "BOX_STD", "DIM_MEAN", "DIM_STD", "encode_boxes",
+           "decode_boxes", "encode_dims", "decode_dims"]
 
 # Normalization constants for the 12 regression targets (dataset statistics).
 BOX_MEAN = np.array(
@@ -33,8 +34,52 @@ DIM_MEAN = np.array([1.6570, 1.7999, 4.2907], dtype=np.float32)
 DIM_STD = np.array([0.2681, 0.2243, 0.6281], dtype=np.float32)
 
 
+_CONSTS = {}  # (values, dtype, device) -> the constant on that device
+
+
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=like.dtype, device=like.device)
+    """`values` in like's dtype on like's device, copied there once: a copy
+    from host memory would stall the host at every call."""
+    values = np.asarray(values)
+    key = (values.dtype.str, values.shape, values.tobytes(), like.dtype,
+           like.device)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.as_tensor(values, dtype=like.dtype,
+                                       device=like.device)
+    return _CONSTS[key]
+
+
+def encode_boxes(anchors, gt, mean=BOX_MEAN, std=BOX_STD):
+    """Encode ground-truth boxes+keypoints against anchors.
+
+    Args
+      anchors: (..., 4) anchor boxes (x1, y1, x2, y2).
+      gt:      (..., 12) (x1,y1,x2,y2,xl,yl,xm,ym,xr,yr,xt,yt).
+
+    Returns (targets (..., 12) normalized, the xm / xt entries absolute;
+    sign (...,) 0 left of the anchor centre, 1 right, 0.5 on it).
+    """
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    cx = (anchors[..., 0] + anchors[..., 2]) / 2.0
+
+    dx1 = (gt[..., 0] - anchors[..., 0]) / aw
+    dy1 = (gt[..., 1] - anchors[..., 1]) / ah
+    dx2 = (gt[..., 2] - anchors[..., 2]) / aw
+    dy2 = (gt[..., 3] - anchors[..., 3]) / ah
+    dxl = (gt[..., 4] - anchors[..., 0]) / aw
+    dyl = (gt[..., 5] - anchors[..., 3]) / ah
+    dxm = (gt[..., 6] - cx) / aw
+    dym = (gt[..., 7] - anchors[..., 3]) / ah
+    dxr = (gt[..., 8] - anchors[..., 2]) / aw
+    dyr = (gt[..., 9] - anchors[..., 3]) / ah
+    dxt = (gt[..., 10] - cx) / aw
+    dyt = (gt[..., 11] - anchors[..., 1]) / ah
+
+    sign = (torch.sign(dxm) + 1.0) / 2.0
+    targets = torch.stack([dx1, dy1, dx2, dy2, dxl, dyl, dxm.abs(), dym, dxr,
+                           dyr, dxt.abs(), dyt], dim=-1)
+    return (targets - _const(mean, targets)) / _const(std, targets), sign
 
 
 def decode_boxes(anchors, deltas, sign, mean=BOX_MEAN, std=BOX_STD):
@@ -66,6 +111,12 @@ def decode_boxes(anchors, deltas, sign, mean=BOX_MEAN, std=BOX_STD):
     yt = anchors[..., 1] + d[..., 11] * h
     return torch.stack([x1, y1, x2, y2, xl, yl, xm, ym, xr, yr, xt, yt],
                        dim=-1)
+
+
+def encode_dims(dims, mean=DIM_MEAN, std=DIM_STD):
+    """Normalize (h, w, l); `mean`/`std` have the length of the trailing
+    axis of `dims` (3, or 3C tiled per class)."""
+    return (dims - _const(mean, dims)) / _const(std, dims)
 
 
 def decode_dims(dims, mean=DIM_MEAN, std=DIM_STD):

@@ -1,1 +1,2 @@
-"""Evaluation sweep (training itself is ROADMAP A14)."""
+"""Training: losses, the train step, the plateau schedule, checkpoints, and
+`fit` with its validation sweep."""

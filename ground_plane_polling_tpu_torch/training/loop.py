@@ -1,12 +1,19 @@
-"""The validation sweep (port of `evaluate_model` of
-ground_plane_polling_tpu/training/loop.py): per-bucket VOC AP, mean AP over
-the buckets that hold annotations, and keypoint/h/w/l L1 errors. `fit`, the
-training loop, is ROADMAP A14.
+"""Training orchestration and the validation sweep (port of
+ground_plane_polling_tpu/training/loop.py).
+
+`fit` runs the epochs: steps over the loader, a NaN guard, the validation
+sweep (`evaluate_model`: per-bucket VOC AP, mean AP over the buckets that
+hold annotations, keypoint/h/w/l L1 errors), reduce-on-plateau on the
+epoch's mean loss, checkpoints and a JSONL log.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 import warnings
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -14,8 +21,12 @@ import torch
 from ..inference import make_detect_fn
 from ..utils.eval import (bucket_annotations, bucket_detections,
                           evaluate_detections)
+from .checkpoint import (AsyncCheckpointSaver, prune_checkpoints,
+                         save_checkpoint)
+from .schedule import ReduceLROnPlateau
+from .train import TrainState
 
-__all__ = ["evaluate_model"]
+__all__ = ["evaluate_model", "fit"]
 
 
 def evaluate_model(model, loader, num_classes: int = 1,
@@ -116,3 +127,125 @@ def evaluate_model(model, loader, num_classes: int = 1,
     errors = {"keypoint_error": kp_err, "height_error": h_err,
               "width_error": w_err, "length_error": l_err}
     return mean_ap, errors, aps
+
+
+def _six_digits(record: dict) -> dict:
+    """Floats to 6 significant digits (a fixed number of decimals would
+    print a reduced lr of 1e-6 as 0.0)."""
+    return {k: (float(f"{v:.6g}") if isinstance(v, float) else v)
+            for k, v in record.items()}
+
+
+def fit(model, state: TrainState, train_step: Callable, train_loader,
+        epochs: int = 50, steps_per_epoch: Optional[int] = None,
+        val_loader=None, num_classes: int = 1,
+        checkpoint_dir: Optional[str] = None,
+        log_path: Optional[str] = None,
+        tensorboard_dir: Optional[str] = None,
+        lr_schedule: Optional[ReduceLROnPlateau] = None,
+        verbose: bool = True,
+        nan_guard: bool = True,
+        keep_checkpoints: int = 5,
+        checkpoint_every: int = 1,
+        eval_mesh=None,
+        async_checkpoints: bool = True):
+    """Run the training loop; returns the final TrainState.
+
+    Each step's metrics stay device tensors, read back once per epoch.
+    nan_guard: a non-finite loss aborts the run (after logging) before
+    anything is checkpointed. The last epoch always checkpoints; with
+    async_checkpoints the save in flight is joined, and old checkpoints
+    pruned (keep_checkpoints <= 0 keeps all), before the next one and
+    before fit returns. The validation sweep runs the model as it is, in
+    float32 (also after bf16 training steps, which autocast).
+    """
+    if tensorboard_dir:
+        raise NotImplementedError("tensorboard_dir: TensorBoard logging is "
+                                  "ROADMAP A17")
+    if eval_mesh is not None:
+        raise NotImplementedError("eval_mesh: data-parallel evaluation is "
+                                  "ROADMAP A15")
+    lr_schedule = lr_schedule or ReduceLROnPlateau()
+    saver = AsyncCheckpointSaver() if async_checkpoints else None
+    if log_path and os.path.dirname(log_path):
+        os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    log_f = open(log_path, "a") if log_path else None
+
+    def log(record):
+        record = _six_digits(record)
+        if log_f:
+            log_f.write(json.dumps(record) + "\n")
+            log_f.flush()
+        if verbose:
+            print(record, flush=True)
+
+    try:
+        for epoch in range(epochs):
+            t0 = time.time()
+            metrics = []
+            it = iter(train_loader.epoch())
+            step_count = steps_per_epoch or len(train_loader)
+            for _ in range(step_count):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    it = iter(train_loader.epoch())
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        raise RuntimeError(
+                            "training loader yielded no batches — empty "
+                            "dataset or a failed input pipeline") from None
+                state, m = train_step(state, batch)
+                metrics.append(m)
+            if not metrics:
+                raise RuntimeError(
+                    "epoch ran zero steps (steps_per_epoch=0 or empty "
+                    "loader) — nothing to train on")
+            # one read-back per epoch
+            keys = list(metrics[0])
+            values = torch.stack([torch.stack([m[k] for k in keys])
+                                  for m in metrics]).float().cpu().numpy()
+            per_step = {k: values[:, i].tolist() for i, k in enumerate(keys)}
+            if nan_guard and not np.isfinite(per_step["loss"]).all():
+                bad = int(np.argmax(~np.isfinite(per_step["loss"])))
+                log({"epoch": epoch, "error": "non-finite loss",
+                     "first_bad_step": bad,
+                     "loss_values": per_step["loss"]})
+                raise FloatingPointError(
+                    f"non-finite loss in epoch {epoch} (first at step "
+                    f"{bad}); aborting before checkpointing corrupt state")
+            losses = {k: float(np.mean(v)) for k, v in per_step.items()}
+            record = {"epoch": epoch, "step": state.step, "lr": state.lr,
+                      "seconds": round(time.time() - t0, 2), **losses}
+
+            if val_loader is not None:
+                mean_ap, errors, _ = evaluate_model(model, val_loader,
+                                                    num_classes=num_classes)
+                record.update({"mAP": mean_ap, **errors})
+
+            state, reduced = lr_schedule.update(state, losses["loss"])
+            if reduced:
+                record["lr_reduced_to"] = state.lr
+
+            if checkpoint_dir and ((epoch + 1) % max(checkpoint_every, 1) == 0
+                                   or epoch == epochs - 1):
+                if saver is not None:
+                    # join the last save and prune BEFORE the next one: a
+                    # crash mid-write leaves the last complete checkpoint
+                    saver.wait()
+                    prune_checkpoints(checkpoint_dir, keep=keep_checkpoints)
+                    record["checkpoint"] = saver.save(checkpoint_dir, state)
+                else:
+                    record["checkpoint"] = save_checkpoint(checkpoint_dir,
+                                                           state)
+                    prune_checkpoints(checkpoint_dir, keep=keep_checkpoints)
+            log(record)
+    finally:
+        if saver is not None:
+            saver.wait()
+            if checkpoint_dir:  # the last save skipped its own prune
+                prune_checkpoints(checkpoint_dir, keep=keep_checkpoints)
+        if log_f:
+            log_f.close()
+    return state

@@ -39,6 +39,8 @@ setup(
             "ground_plane_polling_tpu_torch.bin.evaluate_3d:main",
             "gpp-torch-convert-model="
             "ground_plane_polling_tpu_torch.bin.convert_model:main",
+            "gpp-torch-train="
+            "ground_plane_polling_tpu_torch.bin.train:main",
         ],
     },
 )

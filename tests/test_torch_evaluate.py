@@ -195,10 +195,11 @@ def test_loader_buckets_equal_jax(split, sides, pad):
 
 
 def test_training_batches_are_not_ported(split):
+    """Training batches are ported (tests/test_torch_train_loop.py) except
+    through the JAX package's native C++ loader, which raises."""
     _, root = split
-    loader = KittiLoader(KittiDataset(root, "val"))
-    with pytest.raises(NotImplementedError, match="A14"):
-        loader.epoch()
+    with pytest.raises(NotImplementedError, match="A10b"):
+        KittiLoader(KittiDataset(root, "val"), use_native_loader=True)
 
 
 # --- utils/eval.py -----------------------------------------------------------

@@ -1,8 +1,8 @@
 """The PyTorch port on the card: its CUDA kernels against their plain
-PyTorch versions, fused against split heads, and serve --once against the
-same run on the CPU. Every test here needs a CUDA device (`gpu` marker)
-and skips without one. The file imports nothing of JAX, so it also runs
-where JAX is not installed:
+PyTorch versions, fused against split heads, serve --once and one train
+step against the same run on the CPU. Every test here needs a CUDA device
+(`gpu` marker) and skips without one. The file imports nothing of JAX, so
+it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -m gpu -q
 
@@ -246,3 +246,93 @@ def test_serve_once_on_the_card(cuda, tmp_path, tf32_off):
         g = np.array([r[4:8] + r[15:16] for r in got], float)
         w = np.array([r[4:8] + r[15:16] for r in want], float)
         np.testing.assert_allclose(g, w, rtol=0, atol=0.02, err_msg=name)
+
+
+def _raw_train_batch(b=2, shape=(64, 224)):
+    """A raw training batch as KittiLoader(raw_batches=True) yields it,
+    two boxes an image, on the CPU."""
+    rng = np.random.RandomState(0)
+    ann = np.zeros((b, 4, 17), np.float32)
+    ann[:, :2, :4] = [[20, 10, 80, 50], [120, 8, 190, 60]]
+    ann[:, :2, 4:12] = rng.uniform(20, 60, (b, 2, 8))
+    ann[:, :2, 12:15] = [1.5, 1.6, 4.0]
+    return {"images": torch.from_numpy(rng.randint(0, 256, (b, *shape, 3))
+                                       .astype(np.uint8)),
+            "annotations": torch.from_numpy(ann),
+            "ann_mask": torch.tensor([[True, True, False, False]] * b),
+            "ignores": torch.zeros(b, 1, 4), "ignore_mask":
+            torch.zeros(b, 1, dtype=torch.bool),
+            "valid": torch.ones(b, dtype=torch.bool),
+            "sizes": torch.tensor([shape] * b, dtype=torch.float32)}
+
+
+def _shrunk_train_model(device):
+    """Seeded detector, one block per ResNet stage and FPN 64, with the
+    classification out kernel redrawn N(0, 0.05)."""
+    from ground_plane_polling_tpu_torch.models import (GPPRetinaNet,
+                                                       init_detector)
+    from ground_plane_polling_tpu_torch.models.resnet import ResNetBackbone
+
+    model = init_detector(GPPRetinaNet(ResNetBackbone((1, 1, 1, 1)),
+                                       feature_size=64), 0)
+    with torch.no_grad():
+        model.classification.cls_out.weight.normal_(
+            0.0, 0.05, generator=torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_cpu(cuda, tf32_off):
+    """One float32 train step of a shrunk detector (one block per ResNet
+    stage, FPN 64) from the same weights and batch on the card and on the
+    CPU: loss terms within rtol 1e-4, each post-clip gradient within 1e-3
+    of its tensor's norm (convolutions summed in another order)."""
+    from ground_plane_polling_tpu_torch.data.pipeline import prepare_batch
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_optimizer, make_train_step)
+
+    batch = prepare_batch(_raw_train_batch(), num_classes=1, augment=False,
+                          device="cpu")
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        model = _shrunk_train_model(device)
+        state = create_train_state(model, make_optimizer(model))
+        state, m = make_train_step()(state, {k: v.to(device)
+                                             for k, v in batch.items()})
+        runs.append(({k: float(v) for k, v in m.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (got, got_g), (want, want_g) = runs
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-4), k
+    for k, g in want_g.items():
+        gap = float((got_g[k] - g).abs().max())
+        assert gap <= 1e-3 * float(g.norm()), (k, gap)
+
+
+@pytest.mark.gpu
+def test_fused_train_step_makes_no_host_sync(cuda):
+    """A bf16 fused train step (upload of a pinned raw batch, augmentation,
+    targets, losses, clip, Adam) never waits for the card: under
+    torch.cuda's sync debug mode "error" a synchronizing operation would
+    raise. The first step, which copies the constants to the card, runs
+    before."""
+    from ground_plane_polling_tpu_torch.data.augment import draw_augmentation
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    raw = _raw_train_batch()
+    raw.update(draw_augmentation(torch.Generator().manual_seed(0),
+                                 raw["sizes"]))
+    raw = {k: v.pin_memory() for k, v in raw.items()}
+    model = _shrunk_train_model(cuda).to(memory_format=torch.channels_last)
+    state = create_train_state(model, make_optimizer(model))
+    step = make_fused_train_step(num_classes=1, augment=True, bf16=True)
+    state, _ = step(state, raw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, raw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 2
+    assert torch.isfinite(metrics["loss"]).item()

@@ -60,7 +60,7 @@ def _run_blocked(body, tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["serve", "evaluate", "evaluate_3d",
-                                 "convert_model", "run_network"])
+                                 "convert_model", "run_network", "train"])
 def test_cli_help_with_jax_blocked(cli, tmp_path):
     out = _run_blocked(
         "import runpy\n"

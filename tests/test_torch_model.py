@@ -44,8 +44,10 @@ def shrunk_torch_model(num_classes=1):
 def randomized_variables(model, seed=0, image_shape=(64, 64)):
     """flax init, then random frozen-BN statistics and a random
     classification out kernel, so every weight kind is non-trivial."""
-    variables = model.init(jax.random.PRNGKey(seed),
-                           jnp.zeros((1, *image_shape, 3), jnp.float32))
+    # jitted: flax's eager init compiles op by op, several times slower
+    variables = jax.jit(model.init)(jax.random.PRNGKey(seed),
+                                    jnp.zeros((1, *image_shape, 3),
+                                              jnp.float32))
     rng = np.random.RandomState(seed)
     frozen = jax.tree_util.tree_map(np.asarray, variables["frozen"])
 
