@@ -7,7 +7,8 @@ PyTorch versions and runs its main path end to end.
 
 Phases (any failure exits non-zero before the last line):
   0. environment: a CUDA card, its name and power limit; build the polling
-     kernel from csrc/ and print the build time and nvcc's register report;
+     and int8 kernels from csrc/ (two nvcc at once) and print the build
+     times and nvcc's register reports;
   1. the polling kernel against its twin on the card, at (B, D, P) =
      (1, 100, 1024), (1, 100, 21634), (4, 100, 21634), (2, 5, 13), on the
      crafted edge cases, and on the same edges with the competing planes
@@ -44,8 +45,19 @@ Phases (any failure exits non-zero before the last line):
      within 1e-3 of its tensor's norm; (d) bin/train for one epoch of 4
      steps with the validation sweep, then --snapshot auto carries the
      step count on.
-Phases 4-7 each drive their path with the polling kernel's launch count
-set to 0 and fail if the kernel was not launched.
+  8. int8 (models/quantize.py, csrc/int8_conv.cu), ResNet-50 bf16 at
+     416x1344, calibrated on 8 canvases: (a) at every distinct conv shape
+     of the b1 forward and the P3 box tower at b4, the quantize kernel and
+     the conv kernel against their plain versions (int8 and bf16 outputs
+     bit for bit, int32 accumulators exactly) and timed beside their bound,
+     the bf16 cuDNN conv and, at 1x1 stride 1, torch._int_mm; (b) the int8
+     detect call at b1 and b4 (136 launches of each kernel and 1 polling
+     launch a call; 111 with fused towers) timed in turns against bf16,
+     its detections against bf16's, and a float32 int8 forward, card
+     against CPU on one set of scales; (c) run_network, serve and evaluate
+     with --int8, each launching the conv kernel.
+Phases 4-8 each drive their path with the launch counts set to 0 and fail
+if a kernel of the path was not launched.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1090,13 +1102,397 @@ def phase7_train(torch, polling_cuda, tmp, cli, smi):
     return result
 
 
+INT8_CALIB = 8  # canvases the int8 calibration of phase 8 takes
+PEAK_INT8_OPS = 1979e12  # NVIDIA H100 SXM, dense int8 tensor cores
+INT8_SITES = {False: 136, True: 111}  # conv sites: split, fused towers
+# int8 against float detections: JAX's own int8 test bound on scores
+# (ground_plane_polling_tpu's tests/test_quantize.py)
+INT8_SCORE_TOL = 5e-3
+
+
+def int8_conv_bound(x_shape, w_shape, out_shape, out_bytes):
+    """{"operations": ms, "bytes": ms} of one int8 conv: 2 M N K int8
+    operations at the int8 peak, and its bytes (the int8 input, the int8
+    weights, the scales and bias, the output) at the memory rate; its
+    least time is the larger."""
+    b, cin, h, w = x_shape
+    cout, _, kh, kw = w_shape
+    m = b * out_shape[2] * out_shape[3]
+    ops = 2 * m * cout * cin * kh * kw
+    nbytes = (b * cin * h * w + cout * cin * kh * kw + cout * (4 + out_bytes)
+              + m * cout * out_bytes)
+    return {"operations": ops / PEAK_INT8_OPS * 1e3,
+            "bytes": nbytes / PEAK_BYTES * 1e3}
+
+
+def int8_site_inputs(torch, tq, model, scales, images, keep=None):
+    """Run the int8 forward of `model` on `images` and return, per distinct
+    conv shape (input shape, weight shape, stride, padding), a real input
+    of that shape, its site's scale, the conv and how many sites have the
+    shape; `keep` selects keys."""
+    qm = tq.quantize_apply(model, scales)
+    sites = {}
+
+    def record(site, conv, x):
+        pad = tq.conv_padding(conv, x)
+        key = (tuple(x.shape), tuple(conv.weight.shape), conv.stride[0], pad)
+        if keep is None or keep(key):
+            entry = sites.setdefault(key, {"x": x, "s_x": float(scales[site]),
+                                           "conv": conv, "n": 0,
+                                           "weight": qm.int8_weight(conv)})
+            entry["n"] += 1
+        return qm._conv(site, conv, x)
+
+    with torch.inference_mode(), tq._intercept(model, record):
+        model(images)
+    return sites
+
+
+def device_kernels(torch, fn, reps=5):
+    """[(kernel name, device ms)] of `reps` calls of fn(), from
+    torch.profiler, each duration divided by `reps`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us() / 1e3 / reps)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def split_int8_kernels(kernels):
+    """Device ms of the int8 conv kernel, the quantize kernel and all other
+    kernels in a device_kernels list."""
+    out = {"conv": 0.0, "quantize": 0.0, "other": 0.0}
+    for name, ms in kernels:
+        kind = ("conv" if "::conv_kernel<" in name else
+                "quantize" if "::quantize_kernel(" in name else "other")
+        out[kind] += ms
+    return out
+
+
+def phase8a_kernels(torch, int8_conv_cuda, sites, label):
+    """Each distinct conv shape: the quantize kernel against its plain
+    version (bit for bit), the conv kernel's int32 accumulators (exactly)
+    and bf16 output with bias (bit for bit) against theirs, and device
+    times from torch.profiler (5 calls each): quantize, conv, the bf16
+    cuDNN conv of the float path and, for 1x1 stride-1 shapes,
+    torch._int_mm (which must give the same accumulators); the plain
+    versions are timed with CUDA events (median of 10 calls). Returns
+    per-shape rows."""
+    import torch.nn.functional as F
+
+    from ground_plane_polling_tpu_torch.ops import int8_conv as plain
+
+    rows = []
+    for key, e in sites.items():
+        x_shape, w_shape, stride, pad = key
+        x, s_x, conv = e["x"], e["s_x"], e["conv"]
+        with torch.inference_mode():
+            w8, s_w = e["weight"]
+            bias = conv.bias
+            x8 = int8_conv_cuda.quantize(x, s_x)
+            x8_ref = plain.quantize_activation(x, s_x)
+            acc = int8_conv_cuda.conv2d_accumulate(x8, w8, stride, pad)
+            acc_ref = plain.conv2d_int8(x8, w8, stride, pad)
+            y = int8_conv_cuda.conv2d(x8, w8, s_x, s_w, bias, stride, pad,
+                                      x.dtype)
+            y_ref = plain.int8_conv2d(x8, w8, s_x, s_w, bias, stride, pad,
+                                      x.dtype)
+            errs = {name: float((got.double() - want.double()).abs().max())
+                    for name, got, want in (("quantize", x8, x8_ref),
+                                            ("acc", acc, acc_ref),
+                                            ("conv", y, y_ref))}
+            # bit for bit: int8 and int32 exactly, bf16 outputs too
+            assert errs == {"quantize": 0.0, "acc": 0.0, "conv": 0.0}, \
+                (key, errs)
+            (top, bottom), (left, right) = pad
+            xp = F.pad(x, (left, right, top, bottom))
+
+            def int8_and_cudnn():
+                int8_conv_cuda.quantize(x, s_x)
+                int8_conv_cuda.conv2d(x8, w8, s_x, s_w, bias, stride, pad,
+                                      x.dtype)
+                F.conv2d(xp, conv.weight, bias, stride)
+
+            dev = split_int8_kernels(device_kernels(torch, int8_and_cudnn))
+            row = {
+                "key": key, "n": e["n"], "quantize_ms": dev["quantize"],
+                "quantize_err": errs["quantize"],
+                "conv_err": max(errs["acc"], errs["conv"]),
+                "conv_ms": dev["conv"], "cudnn_ms": dev["other"],
+                "quantize_plain_ms": cuda_ms(
+                    lambda: plain.quantize_activation(x, s_x), 10, 3),
+                "conv_plain_ms": cuda_ms(lambda: plain.int8_conv2d(
+                    x8, w8, s_x, s_w, bias, stride, pad, x.dtype), 10, 3),
+                "int_mm_ms": None,
+                "quantize_bound_ms": x.numel() * (x.element_size() + 1)
+                / PEAK_BYTES * 1e3,
+            }
+            bound = int8_conv_bound(x_shape, w_shape, y.shape,
+                                    y.element_size())
+            row["conv_bound_by"] = max(bound, key=bound.get)
+            row["conv_bound_ms"] = bound[row["conv_bound_by"]]
+            row["conv_ops_ms"] = bound["operations"]
+            row["conv_bytes_ms"] = bound["bytes"]
+            if w_shape[2:] == (1, 1) and stride == 1:
+                a = x8.permute(0, 2, 3, 1).reshape(-1, w_shape[1])
+                b = w8.reshape(w_shape[0], w_shape[1]).t()
+                mm = torch._int_mm(a, b)
+                assert torch.equal(mm, acc.permute(0, 2, 3, 1).reshape(
+                    mm.shape)), key
+                row["int_mm_ms"] = sum(ms for _, ms in device_kernels(
+                    torch, lambda: torch._int_mm(a, b)))
+        rows.append(row)
+        log(f"  {label} x{tuple(x_shape)} w{tuple(w_shape)} s{stride} "
+            f"pad{pad} x{e['n']}: device ms quantize "
+            f"{row['quantize_ms']:.4f} (bound {row['quantize_bound_ms']:.4f})"
+            f", conv {row['conv_ms']:.4f} (bound {row['conv_bound_ms']:.4f} "
+            f"by {row['conv_bound_by']}), cuDNN bf16 {row['cudnn_ms']:.4f}"
+            + (f", _int_mm {row['int_mm_ms']:.4f}" if row["int_mm_ms"]
+               else "") + f"; plain (events) {row['quantize_plain_ms']:.4f}"
+            f" + {row['conv_plain_ms']:.4f}")
+    return rows
+
+
+def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli):
+    """int8: (a) kernels against plain versions at every distinct conv
+    shape of the full-width b1 forward and the P3 box tower at b4, with
+    times; (b) the int8 detect call at b1 and b4 (launch counts, timed in
+    turns against bf16, detections against bf16's), fused towers, and card
+    against CPU in float32; (c) run_network, serve and evaluate --int8."""
+    from ground_plane_polling_tpu_torch.bin import evaluate, run_network, serve
+    from ground_plane_polling_tpu_torch.data.kitti import BGR_MEAN
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+    from ground_plane_polling_tpu_torch.models import (build_detector,
+                                                       fuse_detector_params)
+    from ground_plane_polling_tpu_torch.models import quantize as tq
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 9)
+    split = full_width_model(torch, SEED)
+    model = place_model(split, dev, torch.bfloat16)
+    canvases = [torch.from_numpy(rng.randint(0, 256, (1, *CANVAS, 3)).astype(
+        np.uint8)).to(dev) for _ in range(INT8_CALIB)]
+    t0 = time.perf_counter()
+    scales = tq.collect_scales_uint8(model, canvases)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    assert scales.shape == (INT8_SITES[False],) and (scales > 0).all()
+    log(f"phase 8: int8, ResNet-50 bf16 at {CANVAS[0]}x{CANVAS[1]}, "
+        f"calibrated (absmax) on {INT8_CALIB} canvases in {calib_s:.2f} s, "
+        f"{len(scales)} sites")
+
+    log("phase 8a: int8 kernels against their plain versions, every "
+        "distinct conv shape at b1 and the P3 box tower at b4 (device "
+        "times: torch.profiler over 5 calls)")
+    mean = torch.as_tensor(BGR_MEAN, device=dev)
+
+    def net_input(b):
+        im = torch.from_numpy(rng.randint(0, 256, (b, *CANVAS, 3)).astype(
+            np.uint8)).to(dev)
+        return (im.float() - mean).permute(0, 3, 1, 2)
+
+    sites = int8_site_inputs(torch, tq, model, scales, net_input(1))
+    assert sum(e["n"] for e in sites.values()) == INT8_SITES[False]
+    p3 = (CANVAS[0] // 8, CANVAS[1] // 8)
+    box_b4 = int8_site_inputs(
+        torch, tq, model, scales, net_input(4),
+        keep=lambda k: k[0] == (4, 512, *p3) and k[1] == (512, 512, 3, 3))
+    rows = phase8a_kernels(torch, int8_conv_cuda, sites, "b1")
+    rows_b4 = phase8a_kernels(torch, int8_conv_cuda, box_b4, "b4")
+    per_call = {k: sum(r[k] * r["n"] for r in rows) for k in (
+        "quantize_ms", "quantize_plain_ms", "quantize_bound_ms", "conv_ms",
+        "conv_plain_ms", "conv_bound_ms", "conv_ops_ms", "conv_bytes_ms",
+        "cudnn_ms")}
+    one_by_one = [r for r in rows if r["int_mm_ms"] is not None]
+    per_call["int_mm_1x1_ms"] = sum(r["int_mm_ms"] * r["n"]
+                                    for r in one_by_one)
+    per_call["conv_1x1_ms"] = sum(r["conv_ms"] * r["n"] for r in one_by_one)
+    for kind in ("quantize_err", "conv_err"):
+        per_call[kind] = max(r[kind] for r in rows + rows_b4)
+    per_call["conv_bound_by"] = ("operations" if per_call["conv_ops_ms"]
+                                 >= per_call["conv_bytes_ms"] else "bytes")
+    log(f"  {len(rows)} distinct shapes; per b1 forward (each shape times "
+        f"its sites), device ms: quantize {per_call['quantize_ms']:.4f} "
+        f"(bound {per_call['quantize_bound_ms']:.4f}); conv "
+        f"{per_call['conv_ms']:.4f} (bound {per_call['conv_bound_ms']:.4f}: "
+        f"operations {per_call['conv_ops_ms']:.4f}, bytes "
+        f"{per_call['conv_bytes_ms']:.4f}), cuDNN bf16 "
+        f"{per_call['cudnn_ms']:.4f}; 1x1 stride-1 sites: conv "
+        f"{per_call['conv_1x1_ms']:.4f}, torch._int_mm "
+        f"{per_call['int_mm_1x1_ms']:.4f}; plain versions (CUDA events, "
+        f"host time included) {per_call['quantize_plain_ms']:.4f} + "
+        f"{per_call['conv_plain_ms']:.4f}")
+
+    log("phase 8b: the int8 detect call, b1 and b4, bf16, "
+        f"{N_PLANES} planes, timed in turns bf16, int8, int8, bf16")
+    planes = synthetic_planes(rng, N_PLANES)
+    P_inv = np.linalg.pinv(P2).astype(np.float32)
+    timings, launches = {}, {"quantize": 0, "conv": 0, "calls": 0}
+    for b in (1, 4):
+        args = (torch.from_numpy(rng.randint(
+                    0, 256, (b, *CANVAS, 3)).astype(np.uint8)).to(dev),
+                torch.from_numpy(np.tile(P_inv[None], (b, 1, 1))).to(dev),
+                torch.from_numpy(np.tile(planes[None], (b, 1, 1))).to(dev))
+        fns = {name: make_detect_fn(model, CANVAS, with_pose=True,
+                                    device_preprocess=True, device=dev,
+                                    quant_scales=q)
+               for name, q in (("bf16", None), ("int8", scales))}
+        outs = {}
+        for name in ("bf16", "int8", "int8", "bf16"):
+            int8_conv_cuda.QUANTIZE_LAUNCHES = 0
+            int8_conv_cuda.CONV_LAUNCHES = 0
+            polling_cuda.LAUNCHES = 0
+            sec, outs[name] = timed_detect(torch, fns[name], args, n_iter=10)
+            calls = 13  # 3 warm-up and 10 timed calls
+            assert polling_cuda.LAUNCHES == calls, polling_cuda.LAUNCHES
+            want = INT8_SITES[False] * calls if name == "int8" else 0
+            assert int8_conv_cuda.CONV_LAUNCHES == want, \
+                int8_conv_cuda.CONV_LAUNCHES
+            assert int8_conv_cuda.QUANTIZE_LAUNCHES == want
+            if name == "int8":
+                launches["quantize"] += int8_conv_cuda.QUANTIZE_LAUNCHES
+                launches["conv"] += int8_conv_cuda.CONV_LAUNCHES
+                launches["calls"] += calls
+            timings.setdefault((name, b), []).append(sec)
+            log(f"  {name} b{b}: {sec * 1e3:.3f} ms per call, "
+                f"{b / sec:.2f} img/s (host clock over 10 calls, "
+                "synchronized, after 3 warm-up calls); per call "
+                f"{int8_conv_cuda.CONV_LAUNCHES // calls} conv and "
+                f"{int8_conv_cuda.QUANTIZE_LAUNCHES // calls} quantize "
+                f"launches, {polling_cuda.LAUNCHES // calls} polling")
+        sf, sq = (outs[n].scores.float().cpu().numpy() for n in ("bf16",
+                                                                 "int8"))
+        assert np.isfinite(sq).all()
+        assert ((sq > 0).sum(1) == (sf > 0).sum(1)).all(), (sq > 0).sum(1)
+        gap = float(np.abs(sq - sf).max())
+        assert gap <= INT8_SCORE_TOL, gap
+        log(f"  b{b} int8 against bf16 detections: counts "
+            f"{(sq > 0).sum(1).tolist()} equal, max |score gap| {gap:.3e} "
+            f"(bound {INT8_SCORE_TOL:g})")
+        with torch.inference_mode():
+            x = (args[0].float() - mean).permute(0, 3, 1, 2)
+            qm = tq.quantize_apply(model, scales)
+            fwd = [cuda_ms(lambda f=f: f(x), 10, 3) for f in (
+                model, qm, qm, model)]
+            heads = {"bf16": model(x), "int8": qm(x)}
+            busy = {name: split_int8_kernels(device_kernels(
+                torch, lambda f=f: f(x), 3)) for name, f in (
+                    ("bf16", model), ("int8", qm))}
+        timings[("forward", b)] = fwd
+        timings[("busy", b)] = busy
+        log(f"  b{b} forward alone, bf16 / int8 / int8 / bf16: "
+            + " / ".join(f"{m:.4f}" for m in fwd) + " ms (median of 10, "
+            "CUDA events, after 3); device busy per forward (torch.profiler "
+            f"over 3): bf16 {sum(busy['bf16'].values()):.4f} ms, int8 "
+            f"{sum(busy['int8'].values()):.4f} ms = conv "
+            f"{busy['int8']['conv']:.4f} + quantize "
+            f"{busy['int8']['quantize']:.4f} + other "
+            f"{busy['int8']['other']:.4f}")
+        # the int8 error of this model (not of the port, which equals the
+        # CPU's int8 forward in phase 8b'): logged, not bounded
+        errs = {k: float((heads["int8"][k].float() - r.float()).abs().max()
+                         / r.float().abs().max())
+                for k, r in heads["bf16"].items()}
+        timings[("head_err", b)] = errs
+        log(f"  b{b} int8 error, max |int8 - bf16| / max|bf16| of the "
+            "heads: " + ", ".join(f"{k} {v:.4f}" for k, v in errs.items()))
+
+    fused = build_detector("resnet50", fuse_cls_dim=True)
+    fused.load_state_dict(fuse_detector_params(split.state_dict()))
+    fused = place_model(fused, dev, torch.bfloat16)
+    fused_scales = tq.collect_scales_uint8(fused, canvases)
+    assert fused_scales.shape == (INT8_SITES[True],)
+    detect = make_detect_fn(fused, CANVAS, with_pose=True,
+                            device_preprocess=True, device=dev,
+                            quant_scales=fused_scales)
+    int8_conv_cuda.CONV_LAUNCHES = 0
+    polling_cuda.LAUNCHES = 0
+    with torch.inference_mode():
+        out = detect(*[a[:1] for a in args])
+    torch.cuda.synchronize()
+    assert int8_conv_cuda.CONV_LAUNCHES == INT8_SITES[True]
+    assert polling_cuda.LAUNCHES == 1
+    assert np.isfinite(out.scores.float().cpu().numpy()).all()
+    log(f"  fused towers: {int8_conv_cuda.CONV_LAUNCHES} conv launches, 1 "
+        "polling launch per int8 detect call")
+
+    log("phase 8b': float32 int8 forward, TF32 off, 128x416: card against "
+        "CPU on the CPU's calibration (one set of scales)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(rng.randint(0, 256, (1, 128, 416, 3)).astype(
+        np.float32) - BGR_MEAN).permute(0, 3, 1, 2)
+    cpu_net = place_model(full_width_model(torch, SEED), "cpu")
+    card_net = place_model(full_width_model(torch, SEED), dev)
+    small_scales = tq.collect_scales(cpu_net, [x])
+    heads = {}
+    with torch.inference_mode():
+        heads["cpu"] = tq.quantize_apply(cpu_net, small_scales)(x)
+        heads["cuda"] = {k: v.cpu() for k, v in tq.quantize_apply(
+            card_net, small_scales)(x.to(dev)).items()}
+    card_err = 0.0
+    for k, ref in heads["cpu"].items():
+        err = float((heads["cuda"][k] - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-5, (k, err)
+        card_err = max(card_err, err)
+        log(f"  {k}: max |card - cpu| / max|cpu| {err:.3e} (bound 1e-5)")
+    del cpu_net, card_net
+
+    log("phase 8c: run_network, serve and evaluate with --int8 on the card")
+    cli_runs = {}
+    eval_base = os.path.join(tmp, "kitti")
+    for name, fn, argv in (
+            ("run_network", run_network.main,
+             [cli["weights"], cli["images"], cli["calibs"], cli["planes"],
+              os.path.join(tmp, "int8_rn"), "--kitti", "--int8", "2"]),
+            ("serve", serve.main,
+             [cli["weights"], cli["images"], cli["calibs"], cli["planes"],
+              os.path.join(tmp, "int8_serve"), "--once", "--int8", "2",
+              "--batch-size", "2"]),
+            ("evaluate", evaluate.main,
+             [os.path.join(tmp, "eval_model.npz"), eval_base, "--int8",
+              "2"])):
+        int8_conv_cuda.CONV_LAUNCHES = 0
+        polling_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(argv + ["--device", "cuda"])
+        conv_n, poll_n = int8_conv_cuda.CONV_LAUNCHES, polling_cuda.LAUNCHES
+        assert conv_n > 0 and poll_n > 0, (name, conv_n, poll_n)
+        assert conv_n % INT8_SITES[False] == 0, (name, conv_n)
+        cli_runs[name] = (conv_n, poll_n)
+        lines = buf.getvalue().splitlines()
+        log(f"  {name}: {time.perf_counter() - t0:.2f} s wall, {conv_n} "
+            f"int8 conv launches, {poll_n} polling; {lines[-1]}")
+        if name == "serve":
+            assert lines[0] == "int8: calibrated on 2 images", lines[0]
+            assert result == 4
+        if name == "evaluate":
+            assert 0.0 <= result[0] <= 1.0
+    log(f"  phase 8 wall: {time.perf_counter() - t_phase:.2f} s")
+    return {"per_call": per_call, "rows_b4": rows_b4, "launches": launches,
+            "timings": timings, "card_err": card_err, "cli": cli_runs}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from ground_plane_polling_tpu_torch.kernels import (polling_cases,
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
+                                                        polling_cases,
                                                         polling_cuda)
     from ground_plane_polling_tpu_torch.ops import polling as twin
 
@@ -1106,11 +1502,19 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     log(f"phase 0: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    t0 = time.perf_counter()
-    lib = polling_cuda.build()
-    log(f"  built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    log("  " + lib.with_suffix(".log").read_text().strip().replace(
-        "\n", "\n  "))
+    t_start = time.perf_counter()
+
+    def timed_build(module):
+        t0 = time.perf_counter()
+        return module.build(), time.perf_counter() - t0
+
+    # one nvcc for each source, started together
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(timed_build, (polling_cuda, int8_conv_cuda)))
+    for lib, sec in builds:
+        log(f"  built {lib.name} in {sec:.2f} s (in parallel)")
+        log("  " + lib.with_suffix(".log").read_text().strip().replace(
+            "\n", "\n  "))
 
     kernel = phase1_kernel(torch, polling_cuda, twin, polling_cases)
     launches, per_call, _ = phase2_main_path(torch, polling_cuda)
@@ -1120,6 +1524,10 @@ def main():
         phase5_fused(torch, polling_cuda)
         phase6_evaluate(torch, polling_cuda, tmp, cli)
         phase7_train(torch, polling_cuda, tmp, cli, smi)
+        int8 = phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli)
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
+        "phase 0's device query")
+    pc = int8["per_call"]
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1137,6 +1545,38 @@ def main():
         "launches_per_call": per_call,
         "ms_b1": kernel["ms_b1"],
         "ms_b4": kernel["ms_b4"],
+    }, {
+        "name": "int8_quantize",
+        "route": "cuda",
+        "source": "ground_plane_polling_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "ground_plane_polling_tpu/models/quantize.py:216",
+        "launches": int8["launches"]["quantize"],
+        "max_abs_err": pc["quantize_err"],
+        # per b1 int8 forward: the sum over its 136 sites
+        "ms": pc["quantize_ms"],
+        "plain_ms": pc["quantize_plain_ms"],
+        "bound_ms": pc["quantize_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no one PyTorch call rounds x / s to int8 so
+        "launches_per_call": INT8_SITES[False],
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "ground_plane_polling_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "ground_plane_polling_tpu/models/quantize.py:216",
+        "launches": int8["launches"]["conv"],
+        "max_abs_err": pc["conv_err"],
+        "ms": pc["conv_ms"],
+        "plain_ms": pc["conv_plain_ms"],
+        "bound_ms": pc["conv_bound_ms"],
+        "bound_by": pc["conv_bound_by"],
+        # the bf16 cuDNN convolutions of the float path, same shapes
+        "library_ms": pc["cudnn_ms"],
+        "launches_per_call": INT8_SITES[False],
+        "int_mm_1x1_ms": pc["int_mm_1x1_ms"],
+        "conv_1x1_ms": pc["conv_1x1_ms"],
+        "box_tower_p3_b4": {k: int8["rows_b4"][0][k] for k in (
+            "conv_ms", "conv_plain_ms", "conv_bound_ms", "cudnn_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Evaluation CLI (port of ground_plane_polling_tpu/bin/evaluate.py): mAP per
 class-orientation bucket + keypoint/h/w/l L1 errors on a prepared KITTI
 split, from the JAX package's exported .npz weights. Runs float32 with TF32
-off (the JAX CLI has no bf16 option).
+off (the JAX CLI has no bf16 option); `--int8 [N]` runs every conv int8,
+calibrated on the first N eval images.
 
   python -m ground_plane_polling_tpu_torch.bin.evaluate model.npz \
       kitti-data --subset val
@@ -37,21 +38,25 @@ def parse_args(argv):
     p.add_argument("--eval-batch", type=int, default=4,
                    help="same-shape images per detect call (identical "
                         "results)")
-    # options of the JAX CLI that the port does not have yet
+    p.add_argument("--int8", type=int, nargs="?", const=8, default=0,
+                   metavar="N",
+                   help="run every conv int8 (post-training quantization), "
+                        "calibrating activation scales on the first N eval "
+                        "images (default 8)")
+    p.add_argument("--int8-percentile", type=float, default=100.0,
+                   help="clip each conv input's calibrated range to this "
+                        "percentile of |x| (100 = absmax)")
+    # option of the JAX CLI that the port does not have yet
     p.add_argument("--data-parallel", action="store_true",
                    help="not ported yet (ROADMAP A15)")
-    p.add_argument("--int8", type=int, nargs="?", const=8, default=0,
-                   help="not ported yet (ROADMAP A16)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    for flag, item in (("data_parallel", "A15"), ("int8", "A16")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP {item})")
+    if args.data_parallel:
+        raise NotImplementedError(
+            "--data-parallel is not ported yet (ROADMAP A15)")
 
     import torch
 
@@ -85,7 +90,8 @@ def main(argv=None):
         model, loader, num_classes=num_classes,
         score_threshold=args.score_threshold,
         max_detections=args.max_detections,
-        iou_threshold=args.iou_threshold, eval_batch=args.eval_batch)
+        iou_threshold=args.iou_threshold, eval_batch=args.eval_batch,
+        int8_calib=args.int8, int8_percentile=args.int8_percentile)
 
     for bucket, (ap, n) in sorted(aps.items()):
         print(f"bucket {bucket} (class {bucket // 4}, orient {bucket % 4}): "

@@ -7,7 +7,9 @@ write .mat dumps and KITTI-format labels.
 
 The weights are the JAX package's exported .npz with its .json sidecar.
 Frames are bucketed by padded canvas shape and detected `--batch` at a time;
-a short bucket is padded by repeating its last frame.
+a short bucket is padded by repeating its last frame. `--int8 [N]` runs
+every conv int8, calibrated on the first N frames (decoded once, then
+detected like the others).
 """
 
 from __future__ import annotations
@@ -57,21 +59,24 @@ def parse_args(argv):
     p.add_argument("--fuse-towers", action="store_true",
                    help="run the cls+dim heads as one block-diagonal tower "
                         "(identical outputs)")
-    # options of the JAX CLI that the port does not have yet
+    p.add_argument("--int8", type=int, nargs="?", const=8, default=0,
+                   metavar="N",
+                   help="run every conv int8 (post-training quantization), "
+                        "calibrating on the first N images (default 8)")
+    p.add_argument("--int8-percentile", type=float, default=100.0,
+                   help="clip calibrated ranges to this percentile of |x| "
+                        "(100 = absmax)")
+    # option of the JAX CLI that the port does not have yet
     p.add_argument("--save-images", action="store_true",
                    help="not ported yet (ROADMAP A10b)")
-    p.add_argument("--int8", type=int, nargs="?", const=8, default=0,
-                   help="not ported yet (ROADMAP A16)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    for flag, item in (("save_images", "A10b"), ("int8", "A16")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP {item})")
+    if args.save_images:
+        raise NotImplementedError(
+            "--save-images is not ported yet (ROADMAP A10b)")
     if args.model_path.endswith((".h5", ".hdf5")):
         raise NotImplementedError(
             ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
@@ -84,6 +89,7 @@ def main(argv=None):
     from ..data.planes import load_plane_database
     from ..inference import make_detect_fn, place_model, require_device
     from ..models import build_detector, load_weights
+    from ..models.quantize import collect_scales_uint8
     from ..utils.kitti_writer import write_kitti_file
 
     device = require_device(args.device)
@@ -112,6 +118,7 @@ def main(argv=None):
         os.makedirs(os.path.join(out_root, "outputs", "kitti"), exist_ok=True)
 
     detect_fns = {}
+    quant_scales = None
 
     def get_fn(shape):
         if shape not in detect_fns:
@@ -122,7 +129,8 @@ def main(argv=None):
                 orientation_specific=cfg.get("orientation_specific_filter",
                                              False),
                 score_threshold=args.score_threshold,
-                device_preprocess=True, device=device)
+                quant_scales=quant_scales, device_preprocess=True,
+                device=device)
         return detect_fns[shape]
 
     def prepare(fn_txt):
@@ -198,25 +206,44 @@ def main(argv=None):
     calib_files = sorted(f for f in os.listdir(args.calib_dir)
                          if f.endswith(".txt"))
 
+    prepared = {}  # frames decoded for int8 calibration, reused below
+    if args.int8:
+        canvases = []
+        for fn in calib_files:
+            prepared[fn] = fr = prepare(fn)
+            if fr is not None:
+                canvases.append(fr["image"])
+            if len(canvases) >= args.int8:
+                break
+        if canvases:
+            quant_scales = collect_scales_uint8(
+                model, canvases, percentile=args.int8_percentile)
+
     def prepared_frames():
-        """Frames in calib_files order, decoded ahead on a bounded pool."""
+        """Frames in calib_files order, decoded ahead on a bounded pool
+        (or taken from the calibration's)."""
         if args.prep_threads <= 1:
             for fn in calib_files:
-                yield prepare(fn)
+                yield prepared.pop(fn) if fn in prepared else prepare(fn)
             return
         with ThreadPoolExecutor(args.prep_threads) as pool:
             q = collections.deque()
             it = iter(calib_files)
-            for fn in it:
-                q.append(pool.submit(prepare, fn))
-                if len(q) >= 2 * args.prep_threads:
-                    break
-            while q:
-                fut = q.popleft()
+
+            def submit_next():
                 fn = next(it, None)
-                if fn is not None:
-                    q.append(pool.submit(prepare, fn))
-                yield fut.result()
+                if fn in prepared:
+                    q.append((None, prepared.pop(fn)))
+                elif fn is not None:
+                    q.append((pool.submit(prepare, fn), None))
+                return fn is not None
+
+            while len(q) < 2 * args.prep_threads and submit_next():
+                pass
+            while q:
+                fut, fr = q.popleft()
+                submit_next()
+                yield fr if fut is None else fut.result()
 
     buckets = {}
     for fr in prepared_frames():

@@ -18,7 +18,9 @@ exits.
 
 The port's NMS reads a flag back from the card once per round, so the
 dispatch of a batch returns only after its filter stage, and the overlap is
-partial (ROADMAP A4).
+partial (ROADMAP A4). `--int8 [N]` calibrates int8 scales once, on the
+first N frames of the first round, before any detect call, and then runs
+every conv int8.
 """
 
 from __future__ import annotations
@@ -59,24 +61,27 @@ def parse_args(argv):
                         "(identical outputs)")
     p.add_argument("--image-min-side", type=int, default=800)
     p.add_argument("--image-max-side", type=int, default=1333)
-    # option of the JAX CLI that the port does not have yet
     p.add_argument("--int8", type=int, nargs="?", const=8, default=0,
-                   help="not ported yet (ROADMAP A16)")
+                   metavar="N",
+                   help="run every conv int8 (post-training quantization), "
+                        "calibrating activation scales on the first N "
+                        "arrivals (default 8)")
+    p.add_argument("--int8-percentile", type=float, default=100.0,
+                   help="clip calibrated ranges to this percentile of |x| "
+                        "(100 = absmax)")
     return p.parse_args(argv)
 
 
 def _intake_cap(batch_size, int8_n):
     """Max images decoded and uploaded per poll round: a few batches'
     worth keeps the overlap fed without staging an unbounded backlog in
-    device memory (int8 calibration, when ported, needs its whole sample
-    in the first round)."""
+    device memory (int8 calibration needs its whole sample in the first
+    round)."""
     return max(4 * batch_size, int(int8_n or 0))
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.int8:
-        raise NotImplementedError("--int8 is not ported yet (ROADMAP A16)")
     if args.model_path.endswith((".h5", ".hdf5")):
         raise NotImplementedError(
             ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
@@ -89,6 +94,7 @@ def main(argv=None):
     from ..data.planes import load_plane_database
     from ..inference import make_detect_fn, place_model, require_device
     from ..models import build_detector, load_weights
+    from ..models.quantize import collect_scales_uint8
     from ..utils.kitti_writer import write_kitti_file
 
     device = require_device(args.device)
@@ -117,6 +123,7 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
 
     detect_fns = {}
+    quant_scales = None
 
     def get_fn(shape):
         if shape not in detect_fns:
@@ -127,7 +134,8 @@ def main(argv=None):
                 orientation_specific=cfg.get("orientation_specific_filter",
                                              False),
                 score_threshold=args.score_threshold,
-                device_preprocess=True, device=device)
+                quant_scales=quant_scales, device_preprocess=True,
+                device=device)
         return detect_fns[shape]
 
     def upload(array):
@@ -228,6 +236,14 @@ def main(argv=None):
             if item is not None:
                 buckets.setdefault(item["shape"], []).append(item)
             done.add(stem)
+        if args.int8 and quant_scales is None and buckets:
+            # calibrate once, on the first arrivals, before any detect fn
+            # is made: every shape's detect fn then runs int8
+            canvases = [it["image_dev"] for items in buckets.values()
+                        for it in items][:args.int8]
+            quant_scales = collect_scales_uint8(
+                model, canvases, percentile=args.int8_percentile)
+            print(f"int8: calibrated on {len(canvases)} images", flush=True)
         t0 = time.time()
         n_round = 0
         pending = None  # one batch in flight

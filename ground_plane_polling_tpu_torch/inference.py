@@ -2,9 +2,10 @@
 ground_plane_polling_tpu/inference.py).
 
   uint8 BGR canvas -> cast + mean subtraction on the device -> backbone ->
-  FPN -> heads -> fused filter (pre-NMS top-k, sign-aware decode of the
-  candidates, greedy NMS, top-k) -> ground-plane polling (the CUDA kernel on
-  the card, its twin on the CPU) [-> pose solve].
+  FPN -> heads (every conv int8 with `quant_scales`, models/quantize.py)
+  -> fused filter (pre-NMS top-k, sign-aware decode of the candidates,
+  greedy NMS, top-k) -> ground-plane polling (the CUDA kernel on the card,
+  its twin on the CPU) [-> pose solve].
 
 Outputs mirror the JAX package: boxes, dims, scores, labels, orientations,
 keypoints, keyplanes, residuals, padded to `max_detections` with -1, plus
@@ -26,6 +27,7 @@ from .data.frames import resize_uint8, uint8_canvas
 from .data.kitti import BGR_MEAN, preprocess_image, resize_scale
 from .kernels import polling_cuda
 from .models import build_detector, init_detector, load_weights
+from .models.quantize import collect_scales, quantize_apply
 from .ops import anchors as anchor_ops
 from .ops.filtering import filter_detections_fused_batch
 from .ops.pose import solve_pose
@@ -74,6 +76,8 @@ def make_detect_fn(
     `device_preprocess`, else mean-subtracted float. `model` maps NCHW
     images to the head outputs (models.GPPRetinaNet); `device` defaults to
     the device of its parameters, and inputs are moved there.
+    `quant_scales`: per-conv-site int8 activation scales
+    (models.quantize.collect_scales); every conv then runs int8.
     """
     if not fused_decode:
         raise NotImplementedError(
@@ -82,8 +86,8 @@ def make_detect_fn(
     if mesh is not None or shard_spatial:
         raise NotImplementedError(
             "mesh / shard_spatial: multi-GPU inference is ROADMAP A15")
-    if quant_scales is not None:
-        raise NotImplementedError("quant_scales: int8 inference is ROADMAP A16")
+    net = model if quant_scales is None else quantize_apply(model,
+                                                            quant_scales)
     if device is None:
         device = next(model.parameters()).device
     device = torch.device(device)
@@ -112,7 +116,7 @@ def make_detect_fn(
                              f"detect function's shape {image_shape}")
         if device_preprocess:
             images = images.to(torch.float32) - mean
-        raw = model(images.permute(0, 3, 1, 2))
+        raw = net(images.permute(0, 3, 1, 2))
         det = filter_detections_fused_batch(
             anchors, raw["regression"], raw["regression_dim"],
             raw["classification"], **filter_kwargs)
@@ -173,6 +177,34 @@ class GPPDetector:
         self.filter_kwargs = filter_kwargs
         self.ready = False
         self._fns = {}
+        self._quant_scales = None
+
+    @property
+    def quant_scales(self):
+        """Per-conv-site int8 activation scales (None: the float path)."""
+        return self._quant_scales
+
+    @quant_scales.setter
+    def quant_scales(self, value):
+        # the detect fns hold the scales they were made with: drop them
+        self._quant_scales = value
+        self._fns.clear()
+
+    def quantize(self, calib_images, percentile: float = 100.0):
+        """Calibrate and switch to int8 convs (models/quantize.py).
+
+        calib_images: preprocessed float32 (B, H, W, 3) network inputs (BGR,
+        BGR mean subtracted), as the network sees them; shapes may differ
+        between entries. Setting `.quant_scales = None` goes back to
+        float. Returns the scales."""
+        if not self.ready:
+            raise RuntimeError("call .init() or .load() first")
+        batches = [torch.as_tensor(np.asarray(im, np.float32),
+                                   device=self.device).permute(0, 3, 1, 2)
+                   for im in calib_images]
+        self.quant_scales = collect_scales(self.model, batches,
+                                           percentile=percentile)
+        return self.quant_scales
 
     def init(self, seed: int):
         """Seeded random weights (models.init_detector)."""
@@ -182,7 +214,8 @@ class GPPDetector:
 
     def load(self, weights_path: str):
         """Load the JAX package's exported `.npz` weights, strictly; with
-        fused towers, split weights are converted on load."""
+        fused towers, split weights are converted on load. int8 scales are
+        kept; the int8 weights follow the new weights."""
         if weights_path.endswith((".h5", ".hdf5")):
             raise NotImplementedError(
                 ".h5 weights: the Keras import is ROADMAP A10b; convert them "
@@ -201,7 +234,8 @@ class GPPDetector:
             self._fns[key] = make_detect_fn(
                 self.model, images.shape[1:3], num_classes=self.num_classes,
                 with_pose=with_pose, device_preprocess=device_pre,
-                device=self.device, **self.filter_kwargs)
+                quant_scales=self.quant_scales, device=self.device,
+                **self.filter_kwargs)
         return self._fns[key](images, P_inv, planes)
 
     def detect_image(self, image_bgr, P, planes, with_pose: bool = True,

@@ -28,30 +28,26 @@ launches that could run at the same time.
 
 The kernel is compiled with nvcc at first use, from the source in the
 package, into `_build/` beside it (a library with a plain C entry point,
-loaded with ctypes). `LAUNCHES` counts kernel launches: one per call with
-at least one detection.
+loaded with ctypes; kernels/nvcc_build.py). `LAUNCHES` counts kernel
+launches: one per call with at least one detection.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ..ops import polling as twin
+from .nvcc_build import CSRC, build_library
+from .nvcc_build import nvcc as _nvcc  # noqa: F401 (tools/polling_bench.py)
 
 __all__ = ["LAUNCHES", "SOURCE", "build", "fit_road_planes", "plan_splits"]
 
 LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "polling.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = CSRC / "polling.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=true", "-prec-sqrt=false", "-ftz=true",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
@@ -66,31 +62,10 @@ _slots = {}       # device index -> (detections per block, blocks in a wave)
 _workspaces = {}  # (device index, stream) -> (states, counters)
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home:
-        return os.path.join(home, "bin", "nvcc")
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-
-
 def build() -> Path:
     """Compile the kernel (once per source and flag set) and return the
     path of the shared library; nvcc's report lands beside it as `.log`."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libgpp_polling_{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: concurrent builds agree on one file
-    return out
+    return build_library(SOURCE, NVCC_FLAGS, "libgpp_polling")
 
 
 def _library():

@@ -1,11 +1,13 @@
 """Feature Pyramid Network, `feature_size` channels (512 in the detector),
 NCHW (port of ground_plane_polling_tpu/models/fpn.py).
 
-P6 and P7 are 3x3 stride-2 convs with Flax SAME padding, padded explicitly
-by `same_pad`. Upsampling is nearest-neighbour to the lateral's size: an
-exact 2x repeat on canvases padded to 32, and otherwise torch's
-'nearest-exact' (half-pixel centres, which is what JAX's image.resize
-'nearest' computes).
+P6 and P7 are 3x3 stride-2 convs with Flax SAME padding (`SameConv2d`:
+`same_pad`, then the conv, in one module, so that the conv's input is the
+unpadded map, as in the JAX package's conv; int8 calibration reads it).
+Upsampling is nearest-neighbour to the lateral's size: an exact 2x repeat
+on canvases padded to 32, and otherwise torch's 'nearest-exact'
+(half-pixel centres, which is what JAX's image.resize 'nearest'
+computes).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 
 from .resnet import same_pad
 
-__all__ = ["FPN", "upsample_to"]
+__all__ = ["FPN", "SameConv2d", "upsample_to"]
 
 
 def upsample_to(x: torch.Tensor, target_hw) -> torch.Tensor:
@@ -26,6 +28,15 @@ def upsample_to(x: torch.Tensor, target_hw) -> torch.Tensor:
     if th == 2 * h and tw == 2 * w:
         return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
     return F.interpolate(x, size=(th, tw), mode="nearest-exact")
+
+
+class SameConv2d(nn.Conv2d):
+    """An unpadded conv behind Flax's SAME padding for its kernel and
+    stride (asymmetric where the sizes call for it)."""
+
+    def forward(self, x):
+        return super().forward(same_pad(x, self.kernel_size[0],
+                                        self.stride[0]))
 
 
 class FPN(nn.Module):
@@ -41,8 +52,8 @@ class FPN(nn.Module):
         self.p4 = nn.Conv2d(f, f, 3, padding=1)
         self.c3_reduce = nn.Conv2d(c3, f, 1)
         self.p3 = nn.Conv2d(f, f, 3, padding=1)
-        self.p6 = nn.Conv2d(c5, f, 3, stride=2)
-        self.p7 = nn.Conv2d(f, f, 3, stride=2)
+        self.p6 = SameConv2d(c5, f, 3, stride=2)
+        self.p7 = SameConv2d(f, f, 3, stride=2)
 
     def forward(self, c3, c4, c5):
         p5_lat = self.c5_reduce(c5)
@@ -51,6 +62,6 @@ class FPN(nn.Module):
         p4 = self.p4(p4_lat)
         p3_lat = self.c3_reduce(c3) + upsample_to(p4_lat, c3.shape[2:])
         p3 = self.p3(p3_lat)
-        p6 = self.p6(same_pad(c5, 3, 2))
-        p7 = self.p7(same_pad(F.relu(p6), 3, 2))
+        p6 = self.p6(c5)
+        p7 = self.p7(F.relu(p6))
         return [p3, p4, p5, p6, p7]

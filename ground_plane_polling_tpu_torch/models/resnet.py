@@ -20,7 +20,7 @@ from torch import nn
 
 from .common import FrozenBatchNorm
 
-__all__ = ["ResNetBackbone", "RESNET_STAGES", "same_pad"]
+__all__ = ["ResNetBackbone", "RESNET_STAGES", "same_pad", "same_padding"]
 
 RESNET_STAGES = {
     "resnet50": (3, 4, 6, 3),
@@ -29,17 +29,25 @@ RESNET_STAGES = {
 }
 
 
-def same_pad(x: torch.Tensor, kernel: int, stride: int,
-             value: float = 0.0) -> torch.Tensor:
-    """Pad NCHW `x` as XLA's SAME does for a `kernel` window at `stride`:
-    the total padding max((ceil(n/s) - 1) s + k - n, 0) is split with the
-    extra pixel after (bottom/right)."""
+def same_padding(h: int, w: int, kernel: int, stride: int):
+    """((top, bottom), (left, right)) of XLA's SAME padding for a `kernel`
+    window at `stride` on an h x w map: the total padding
+    max((ceil(n/s) - 1) s + k - n, 0) is split with the extra pixel after
+    (bottom/right)."""
     pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad order: W first, then H
+    for n in (h, w):
         out = -(-n // stride)
         total = max((out - 1) * stride + kernel - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads, value=value)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def same_pad(x: torch.Tensor, kernel: int, stride: int,
+             value: float = 0.0) -> torch.Tensor:
+    """Pad NCHW `x` as XLA's SAME does (`same_padding`)."""
+    (top, bottom), (left, right) = same_padding(x.shape[2], x.shape[3],
+                                                kernel, stride)
+    return F.pad(x, (left, right, top, bottom), value=value)
 
 
 def _conv(cin, cout, k, stride=1, padding=0):

@@ -42,14 +42,16 @@ class GPPRetinaNet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> dict:
         features = self.fpn(*self.backbone(images))
+        # the JAX package's call order (box, then dim, then cls; or box,
+        # then the fused tower): int8 calibration numbers conv sites by it
+        regression = [self.regression(f) for f in features]
         if self.fuse_cls_dim:
             cls, dim = zip(*(self.clsdim(f) for f in features))
         else:
-            cls = [self.classification(f) for f in features]
             dim = [self.regression_dim(f) for f in features]
+            cls = [self.classification(f) for f in features]
         return {
-            "regression": torch.cat(
-                [self.regression(f) for f in features], dim=1),
+            "regression": torch.cat(regression, dim=1),
             "regression_dim": torch.cat(dim, dim=1),
             "classification": torch.cat(cls, dim=1),
         }

@@ -9,6 +9,7 @@ epoch's mean loss, checkpoints and a JSONL log.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..inference import make_detect_fn
+from ..models.quantize import collect_scales_uint8
 from ..utils.eval import (bucket_annotations, bucket_detections,
                           evaluate_detections)
 from .checkpoint import (AsyncCheckpointSaver, prune_checkpoints,
@@ -33,7 +35,7 @@ def evaluate_model(model, loader, num_classes: int = 1,
                    score_threshold: float = 0.05, max_detections: int = 100,
                    iou_threshold: float = 0.5, mesh=None,
                    eval_batch: int = 1, int8_calib: int = 0,
-                   **detect_kwargs):
+                   int8_percentile: float = 100.0, **detect_kwargs):
     """Full validation sweep of `model` (models.GPPRetinaNet, placed on its
     device) over `loader.eval_inputs()` -> (mean_ap, errors dict,
     per-bucket APs).
@@ -42,12 +44,19 @@ def evaluate_model(model, loader, num_classes: int = 1,
     last group is padded by repeating its last item, and the padding rows
     are discarded. One group stays in flight: the next group is dispatched
     before the previous one is read back. Results equal the batch-1 sweep.
+
+    `int8_calib` > 0 calibrates int8 activation scales on the first that
+    many eval images (absmax, or `int8_percentile` of |x|) and runs every
+    conv int8 (models/quantize.py).
     """
     if mesh is not None:
         raise NotImplementedError("mesh: data-parallel evaluation is "
                                   "ROADMAP A15")
     if int8_calib:
-        raise NotImplementedError("int8_calib: int8 inference is ROADMAP A16")
+        canvases = [item["image"] for item in
+                    itertools.islice(loader.eval_inputs(), int8_calib)]
+        detect_kwargs["quant_scales"] = collect_scales_uint8(
+            model, canvases, percentile=int8_percentile)
     detect_fns = {}
     # device_preprocess defaults to the image dtype: uint8 images get the
     # cast and mean subtraction on the device, float images are taken as

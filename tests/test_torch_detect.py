@@ -131,7 +131,7 @@ def test_stub_scene_recovers_plane_keypoints_and_pose():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"fused_decode": False}, "A4"), ({"mesh": object()}, "A15"),
-    ({"shard_spatial": True}, "A15"), ({"quant_scales": {}}, "A16")])
+    ({"shard_spatial": True}, "A15")])
 def test_detect_fn_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         inference.make_detect_fn(shrunk_torch_model(), CANVAS, **kwargs)

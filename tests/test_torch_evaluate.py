@@ -318,16 +318,14 @@ def test_float_images_are_taken_as_preprocessed(split, port_runs):
                          port_runs["b4"])
 
 
-@pytest.mark.parametrize("flag,item", [("--data-parallel", "A15"),
-                                       ("--int8", "A16")])
+@pytest.mark.parametrize("flag,item", [("--data-parallel", "A15")])
 def test_unported_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         evaluate(["m.npz", str(tmp_path), flag])
 
 
-@pytest.mark.parametrize("kwargs,item", [({"mesh": object()}, "A15"),
-                                         ({"int8_calib": 8}, "A16")],
-                         ids=["mesh", "int8_calib"])
+@pytest.mark.parametrize("kwargs,item", [({"mesh": object()}, "A15")],
+                         ids=["mesh"])
 def test_evaluate_model_refuses_unported_options(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         evaluate_model(None, None, **kwargs)

@@ -336,3 +336,129 @@ def test_fused_train_step_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert state.step == 2
     assert torch.isfinite(metrics["loss"]).item()
+
+
+# --- int8 convolution (csrc/int8_conv.cu) ---------------------------------
+
+# (kernel, stride, ((top, bottom), (left, right)), batch, cin, cout, h, w):
+# the detector's conv kinds, tile edges in M, N and K, and the stem's
+# byte-wise path (Cin 3)
+INT8_CONV_CASES = {
+    "1x1_s1": (1, 1, ((0, 0), (0, 0)), 2, 64, 256, 13, 21),
+    "1x1_s2_proj": (1, 2, ((0, 0), (0, 0)), 1, 256, 512, 26, 84),
+    "3x3_p1": (3, 1, ((1, 1), (1, 1)), 2, 128, 128, 13, 42),
+    "3x3_s2_same_asym": (3, 2, ((1, 1), (0, 1)), 1, 512, 512, 13, 42),
+    "3x3_s2_same_even": (3, 2, ((0, 1), (0, 1)), 1, 64, 64, 8, 14),
+    "stem_7x7_s2_p3": (7, 2, ((3, 3), (3, 3)), 2, 3, 64, 52, 168),
+    "box_out_144": (3, 1, ((1, 1), (1, 1)), 1, 512, 144, 7, 21),
+    "cls_out_96": (3, 1, ((1, 1), (1, 1)), 1, 256, 96, 7, 21),
+    "dim_out_36": (3, 1, ((1, 1), (1, 1)), 1, 128, 36, 7, 21),
+    "k48_m1": (1, 1, ((0, 0), (0, 0)), 1, 48, 8, 1, 1),
+}
+
+
+def _int8_operands(case, device):
+    from ground_plane_polling_tpu_torch.ops import int8_conv
+
+    k, s, pad, b, cin, cout, h, w = INT8_CONV_CASES[case]
+    rng = np.random.RandomState(sum(map(ord, case)))
+    x = torch.from_numpy(rng.normal(0, 3, (b, cin, h, w)).astype(
+        np.float32)).to(device)
+    wt = torch.from_numpy(rng.normal(0, 0.1, (cout, cin, k, k)).astype(
+        np.float32)).to(device)
+    s_x = float(np.float32(x.abs().max().item() / 127.0 * 0.8))
+    w8, s_w = int8_conv.quantize_weight(wt)
+    return (x, s_x, w8.contiguous(memory_format=torch.channels_last), s_w,
+            torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32))
+            .to(device), s, pad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw", "strided"])
+def test_int8_quantize_matches_plain(cuda, dtype, layout):
+    """The quantize kernel equals the plain version bit for bit, on the
+    card and on the CPU, with half-way values (k + 1/2) s that must round
+    to even and values past +-127 s that must clamp."""
+    from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda
+    from ground_plane_polling_tpu_torch.ops import int8_conv
+
+    rng = np.random.RandomState(3)
+    s = 0.0371
+    x = rng.normal(0, 40 * s, (2, 48, 9, 13)).astype(np.float32)
+    x.reshape(-1)[:200] = (np.arange(-100, 100) + 0.5) * np.float32(s)
+    x.reshape(-1)[200:210] = 300 * s
+    t = torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+    if layout == "channels_last":
+        t = t.contiguous(memory_format=torch.channels_last)
+    elif layout == "strided":
+        t = t[:, ::2]
+    before = int8_conv_cuda.QUANTIZE_LAUNCHES
+    got = int8_conv_cuda.quantize(t, s)
+    assert int8_conv_cuda.QUANTIZE_LAUNCHES == before + 1
+    assert got.dtype == torch.int8 and got.shape == t.shape
+    assert got.permute(0, 2, 3, 1).is_contiguous()
+    want = int8_conv.quantize_activation(t, s)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert torch.equal(got.cpu(), int8_conv.quantize_activation(t.cpu(), s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(INT8_CONV_CASES))
+def test_int8_conv_matches_plain(cuda, case):
+    """The conv kernel: int32 accumulators equal to the plain float64 conv,
+    float32 and bf16 outputs (with and without bias) bit for bit equal to
+    the plain dequantize and bias add, on the card."""
+    from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda
+    from ground_plane_polling_tpu_torch.ops import int8_conv
+
+    x, s_x, w8, s_w, bias, stride, pad = _int8_operands(case, cuda)
+    x8 = int8_conv_cuda.quantize(x, s_x)
+    before = int8_conv_cuda.CONV_LAUNCHES
+    acc = int8_conv_cuda.conv2d_accumulate(x8, w8, stride, pad)
+    want_acc = int8_conv.conv2d_int8(x8, w8, stride, pad)
+    assert torch.equal(acc.cpu(), want_acc.cpu())
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (None, bias.to(dtype)):
+            got = int8_conv_cuda.conv2d(x8, w8, s_x, s_w, b, stride, pad,
+                                        dtype)
+            assert got.dtype == dtype and got.permute(0, 2, 3,
+                                                      1).is_contiguous()
+            want = int8_conv.int8_conv2d(x8, w8, s_x, s_w, b, stride, pad,
+                                         dtype)
+            assert torch.equal(got.cpu(), want.cpu()), (dtype, b is None)
+    assert int8_conv_cuda.CONV_LAUNCHES == before + 5
+
+
+@pytest.mark.gpu
+def test_int8_forward_on_the_card_matches_cpu(cuda, tf32_off):
+    """A shrunk detector's int8 forward on the card against the same on
+    the CPU, on one set of scales (calibrated on the CPU; an ulp of a scale
+    moves roundings): every operation between the int8 convs is correctly
+    rounded on both, so the heads agree to 1e-6 of their largest magnitude
+    (the sigmoid's exp differs). One launch of each kernel per site."""
+    from ground_plane_polling_tpu_torch.inference import place_model
+    from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda
+    from ground_plane_polling_tpu_torch.models import (GPPRetinaNet,
+                                                       init_detector)
+    from ground_plane_polling_tpu_torch.models import quantize
+    from ground_plane_polling_tpu_torch.models.resnet import ResNetBackbone
+
+    model = init_detector(GPPRetinaNet(ResNetBackbone((1, 1, 1, 1)),
+                                       feature_size=64), 0)
+    x = torch.from_numpy(np.random.RandomState(4).uniform(
+        -128, 128, (2, 3, 64, 224)).astype(np.float32))
+    cpu = place_model(model, "cpu")
+    scales = quantize.collect_scales(cpu, [x])
+    with torch.inference_mode():
+        want = quantize.quantize_apply(cpu, scales)(x)
+        card = place_model(model, cuda)
+        before = (int8_conv_cuda.QUANTIZE_LAUNCHES,
+                  int8_conv_cuda.CONV_LAUNCHES)
+        got = quantize.quantize_apply(card, scales)(x.to(cuda))
+    assert (int8_conv_cuda.QUANTIZE_LAUNCHES - before[0],
+            int8_conv_cuda.CONV_LAUNCHES - before[1]) == (100, 100)
+    for key, ref in want.items():
+        np.testing.assert_allclose(got[key].cpu().numpy(), ref.numpy(),
+                                   rtol=0, atol=1e-6 * float(ref.abs().max()),
+                                   err_msg=key)

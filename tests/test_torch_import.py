@@ -115,3 +115,33 @@ def test_polling_wrapper_has_no_fallback():
     try/except that could fall back to the twin."""
     src = (PORT / "kernels" / "polling_cuda.py").read_text()
     assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE)
+
+
+def test_int8_wrapper_has_no_fallback():
+    """The int8 kernels' wrapper, too: no try/except around the launch."""
+    src = (PORT / "kernels" / "int8_conv_cuda.py").read_text()
+    assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE)
+
+
+def test_int8_modules_run_with_jax_blocked(tmp_path):
+    """models/quantize.py, ops/int8_conv.py and kernels/int8_conv_cuda.py
+    import and calibrate, quantize and run a small detector without JAX."""
+    out = _run_blocked(
+        "import torch\n"
+        "from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda\n"
+        "from ground_plane_polling_tpu_torch.models import GPPRetinaNet\n"
+        "from ground_plane_polling_tpu_torch.models import quantize\n"
+        "from ground_plane_polling_tpu_torch.models.resnet import (\n"
+        "    ResNetBackbone)\n"
+        "from ground_plane_polling_tpu_torch.ops import int8_conv\n"
+        "torch.manual_seed(0)\n"
+        "m = GPPRetinaNet(ResNetBackbone((1, 1, 1, 1)),\n"
+        "                 feature_size=16).eval()\n"
+        "x = torch.randn(1, 3, 64, 64) * 50\n"
+        "s = quantize.collect_scales(m, [x])\n"
+        "with torch.inference_mode():\n"
+        "    y = quantize.quantize_apply(m, s)(x)\n"
+        "assert int8_conv_cuda.QUANTIZE_LAUNCHES == 0\n"
+        "print('sites', len(s), sorted(y))\n", tmp_path)
+    assert out.strip() == ("sites 100 ['classification', 'regression', "
+                           "'regression_dim']")

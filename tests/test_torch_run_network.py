@@ -174,8 +174,7 @@ def test_port_fuse_towers_matches_split(cli_outputs):
                                        rtol=rtol, err_msg=f"{fn} {key}")
 
 
-@pytest.mark.parametrize("flag,item", [("--int8", "A16"),
-                                       ("--save-images", "A10b")])
+@pytest.mark.parametrize("flag,item", [("--save-images", "A10b")])
 def test_unported_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         run_network(["m.npz", str(tmp_path), str(tmp_path), "p.mat",

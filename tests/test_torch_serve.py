@@ -25,6 +25,7 @@ import torch
 
 from ground_plane_polling_tpu.bin.serve import _intake_cap as jax_intake_cap
 from ground_plane_polling_tpu.bin.serve import main as jax_serve
+from ground_plane_polling_tpu.bin.serve import parse_args as jax_parse_args
 from ground_plane_polling_tpu_torch.bin import serve as serve_mod
 from ground_plane_polling_tpu_torch.bin.run_network import main as run_network
 from ground_plane_polling_tpu_torch.data import frames
@@ -270,12 +271,16 @@ def test_frame_without_calib_waits(split, tmp_path):
     assert os.listdir(out) == ["000000.txt"]
 
 
-@pytest.mark.parametrize("argv,item", [(["--int8"], "A16"),
-                                       (["--int8", "4"], "A16")])
-def test_int8_raises(tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve_mod.main(["m.npz", str(tmp_path), str(tmp_path), "p.mat",
-                        str(tmp_path)] + argv)
+@pytest.mark.parametrize("argv", [[], ["--int8"], ["--int8", "4"],
+                                  ["--int8", "--int8-percentile", "99.9"]])
+def test_int8_flags_parse_as_jax(argv):
+    """--int8 [N] (8 without N) and --int8-percentile, as the JAX CLI
+    parses them; the int8 runs themselves: tests/test_torch_quantize_cli.py."""
+    base = ["m.npz", "imgs", "calibs", "p.mat", "out"]
+    got, want = (parse(base + argv) for parse in (serve_mod.parse_args,
+                                                   jax_parse_args))
+    assert (got.int8, got.int8_percentile) == (want.int8,
+                                               want.int8_percentile)
 
 
 def test_h5_weights_raise(tmp_path):
