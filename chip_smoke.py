@@ -3,12 +3,14 @@
 CUDA card: the quickest proof that the port builds, agrees with its plain
 PyTorch versions and runs its main path end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against ROOT]
 
 Phases (any failure exits non-zero before the last line):
   0. environment: a CUDA card, its name and power limit; build the polling
-     and int8 kernels from csrc/ (two nvcc at once) and print the build
-     times and nvcc's register reports;
+     and int8 kernels from csrc/ (one nvcc for each source, at once) and
+     print the build times and nvcc's register reports; count the
+     warpgroup MMAs (IGMMA) in each instance of the int8 conv kernel's
+     SASS, which must not be 0;
   1. the polling kernel against its twin on the card, at (B, D, P) =
      (1, 100, 1024), (1, 100, 21634), (4, 100, 21634), (2, 5, 13), on the
      crafted edge cases, and on the same edges with the competing planes
@@ -50,7 +52,13 @@ Phases (any failure exits non-zero before the last line):
      of the b1 forward and the P3 box tower at b4, the quantize kernel and
      the conv kernel against their plain versions (int8 and bf16 outputs
      bit for bit, int32 accumulators exactly) and timed beside their bound,
-     the bf16 cuDNN conv and, at 1x1 stride 1, torch._int_mm; (b) the int8
+     the bf16 cuDNN conv and, at 1x1 stride 1, torch._int_mm, with the
+     conv's plan (tile, splits, blocks), TOP/s and share of the bound;
+     with --against ROOT, the int8 kernels of the checkout ROOT (for
+     example the parent commit unpacked with git archive into the
+     gitignored _parent_tree/) timed in turns with this tree's at every
+     shape (ROOT, this, this, ROOT; each tree through its own wrapper,
+     outputs equal); (b) the int8
      detect call at b1 and b4 (136 launches of each kernel and 1 polling
      launch a call; 111 with fused towers) timed in turns against bf16,
      its detections against bf16's, and a float32 int8 forward, card
@@ -1148,20 +1156,68 @@ def int8_site_inputs(torch, tq, model, scales, images, keep=None):
     return sites
 
 
-def device_kernels(torch, fn, reps=5):
+def device_kernels(torch, fn, reps=5, tries=3):
     """[(kernel name, device ms)] of `reps` calls of fn(), from
-    torch.profiler, each duration divided by `reps`."""
+    torch.profiler, each duration divided by `reps`. On the card's machine
+    a trace may lose device events, its first above all: a spin kernel
+    goes first and is left out, and a trace without device events is
+    taken again, up to `tries` times (then [] with a warning)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.name, e.time_range.elapsed_us() / 1e3 / reps)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.name]
+        if kernels:
+            return kernels
+    log(f"  warning: {tries} traces of {reps} calls without device events")
+    return []
+
+
+# a spinning kernel of about 1 ms on the H100, long enough for the host to
+# queue the calls that device_ms times behind it
+SPIN_CYCLES = 2_000_000
+
+
+def device_ms(torch, fn, reps=5, repeats=3):
+    """Device milliseconds of one call of fn(): CUDA events around `reps`
+    calls queued behind a spinning kernel, so that the card runs them back
+    to back however long the host takes to queue them (the card's own
+    launch gaps count, about a microsecond a kernel); the least of
+    `repeats` such runs, after a warm-up call. Used where torch.profiler
+    traces lose events."""
+    fn()
+    best = float("inf")
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us() / 1e3 / reps)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop) / reps)
+    return best
+
+
+def int8_kind(name):
+    """"conv", "quantize" or "other": which int8 kernel a device event
+    is."""
+    if "::conv_kernel<" in name:
+        return "conv"
+    if "::quantize_kernel(" in name or "::quantize_dense_kernel<" in name:
+        return "quantize"
+    return "other"
 
 
 def split_int8_kernels(kernels):
@@ -1169,21 +1225,43 @@ def split_int8_kernels(kernels):
     kernels in a device_kernels list."""
     out = {"conv": 0.0, "quantize": 0.0, "other": 0.0}
     for name, ms in kernels:
-        kind = ("conv" if "::conv_kernel<" in name else
-                "quantize" if "::quantize_kernel(" in name else "other")
-        out[kind] += ms
+        out[int8_kind(name)] += ms
     return out
 
 
-def phase8a_kernels(torch, int8_conv_cuda, sites, label):
+def int8_turns(torch, trees, x, s_x, w8, s_w, bias, stride, pad):
+    """Device ms of the quantize and conv kernels of each tree's wrapper
+    on one site's inputs, in turns (the other tree, this, this, the other;
+    device_ms over 5 calls each): {tree: [(quantize, conv), ...]}. Every
+    tree's int8 and bf16 outputs must equal this tree's."""
+    outs, times = {}, {name: [] for name in trees}
+    for name in ("other", "this", "this", "other"):
+        ic = trees[name]
+        if name not in outs:
+            x8 = ic.quantize(x, s_x)
+            outs[name] = (x8, ic.conv2d(x8, w8, s_x, s_w, bias, stride, pad,
+                                        x.dtype))
+        x8 = outs[name][0]
+        times[name].append((
+            device_ms(torch, lambda: ic.quantize(x, s_x)),
+            device_ms(torch, lambda: ic.conv2d(x8, w8, s_x, s_w, bias,
+                                               stride, pad, x.dtype))))
+    for got, want in zip(outs["other"], outs["this"]):
+        assert torch.equal(got, want)
+    return times
+
+
+def phase8a_kernels(torch, int8_conv_cuda, sites, label, other=None):
     """Each distinct conv shape: the quantize kernel against its plain
     version (bit for bit), the conv kernel's int32 accumulators (exactly)
     and bf16 output with bias (bit for bit) against theirs, and device
-    times from torch.profiler (5 calls each): quantize, conv, the bf16
-    cuDNN conv of the float path and, for 1x1 stride-1 shapes,
+    times (device_ms): quantize, conv, the bf16 cuDNN conv of the float
+    path and, for 1x1 stride-1 shapes,
     torch._int_mm (which must give the same accumulators); the plain
-    versions are timed with CUDA events (median of 10 calls). Returns
-    per-shape rows."""
+    versions are timed with CUDA events (median of 10 calls). Logs the
+    conv's plan (tile, splits, blocks), its TOP/s and share of the bound.
+    With `other` (another checkout's int8_conv_cuda), both trees' kernels
+    are also timed in turns. Returns per-shape rows."""
     import torch.nn.functional as F
 
     from ground_plane_polling_tpu_torch.ops import int8_conv as plain
@@ -1213,18 +1291,20 @@ def phase8a_kernels(torch, int8_conv_cuda, sites, label):
             (top, bottom), (left, right) = pad
             xp = F.pad(x, (left, right, top, bottom))
 
-            def int8_and_cudnn():
-                int8_conv_cuda.quantize(x, s_x)
-                int8_conv_cuda.conv2d(x8, w8, s_x, s_w, bias, stride, pad,
-                                      x.dtype)
-                F.conv2d(xp, conv.weight, bias, stride)
-
-            dev = split_int8_kernels(device_kernels(torch, int8_and_cudnn))
+            dev = {
+                "quantize": device_ms(
+                    torch, lambda: int8_conv_cuda.quantize(x, s_x)),
+                "conv": device_ms(torch, lambda: int8_conv_cuda.conv2d(
+                    x8, w8, s_x, s_w, bias, stride, pad, x.dtype)),
+                "cudnn": device_ms(
+                    torch, lambda: F.conv2d(xp, conv.weight, bias, stride))}
+            bm, bn, splits = int8_conv_cuda.conv_plan(x8, w8, stride, pad)
+            m = y.shape[0] * y.shape[2] * y.shape[3]
             row = {
                 "key": key, "n": e["n"], "quantize_ms": dev["quantize"],
                 "quantize_err": errs["quantize"],
                 "conv_err": max(errs["acc"], errs["conv"]),
-                "conv_ms": dev["conv"], "cudnn_ms": dev["other"],
+                "conv_ms": dev["conv"], "cudnn_ms": dev["cudnn"],
                 "quantize_plain_ms": cuda_ms(
                     lambda: plain.quantize_activation(x, s_x), 10, 3),
                 "conv_plain_ms": cuda_ms(lambda: plain.int8_conv2d(
@@ -1232,6 +1312,9 @@ def phase8a_kernels(torch, int8_conv_cuda, sites, label):
                 "int_mm_ms": None,
                 "quantize_bound_ms": x.numel() * (x.element_size() + 1)
                 / PEAK_BYTES * 1e3,
+                "plan": (bm, bn, splits),
+                "blocks": -(-m // bm) * -(-w_shape[0] // bn) * splits,
+                "tera_ops": 2 * m * w8.numel() / dev["conv"] / 1e9,
             }
             bound = int8_conv_bound(x_shape, w_shape, y.shape,
                                     y.element_size())
@@ -1245,21 +1328,53 @@ def phase8a_kernels(torch, int8_conv_cuda, sites, label):
                 mm = torch._int_mm(a, b)
                 assert torch.equal(mm, acc.permute(0, 2, 3, 1).reshape(
                     mm.shape)), key
-                row["int_mm_ms"] = sum(ms for _, ms in device_kernels(
-                    torch, lambda: torch._int_mm(a, b)))
+                row["int_mm_ms"] = device_ms(
+                    torch, lambda: torch._int_mm(a, b))
+            if other is not None:
+                row["turns"] = int8_turns(
+                    torch, {"this": int8_conv_cuda, "other": other}, x, s_x,
+                    w8, s_w, bias, stride, pad)
         rows.append(row)
         log(f"  {label} x{tuple(x_shape)} w{tuple(w_shape)} s{stride} "
             f"pad{pad} x{e['n']}: device ms quantize "
             f"{row['quantize_ms']:.4f} (bound {row['quantize_bound_ms']:.4f})"
             f", conv {row['conv_ms']:.4f} (bound {row['conv_bound_ms']:.4f} "
-            f"by {row['conv_bound_by']}), cuDNN bf16 {row['cudnn_ms']:.4f}"
+            f"by {row['conv_bound_by']}, "
+            f"{row['conv_bound_ms'] / row['conv_ms']:.1%} of it; "
+            f"{row['tera_ops']:.1f} TOP/s; tile {bm}x{bn}, {splits} "
+            f"split(s), {row['blocks']} blocks), cuDNN bf16 "
+            f"{row['cudnn_ms']:.4f}"
             + (f", _int_mm {row['int_mm_ms']:.4f}" if row["int_mm_ms"]
                else "") + f"; plain (events) {row['quantize_plain_ms']:.4f}"
             f" + {row['conv_plain_ms']:.4f}")
+        if other is not None:
+            t = row["turns"]
+            log("    in turns, quantize / conv device ms, other tree: "
+                + ", ".join(f"{q:.4f} / {c:.4f}" for q, c in t["other"])
+                + "; this tree: "
+                + ", ".join(f"{q:.4f} / {c:.4f}" for q, c in t["this"]))
     return rows
 
 
-def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli):
+def turns_summary(rows):
+    """Per b1 forward (each shape times its sites), the sums of each
+    tree's quantize and conv times over its two turns, and the shapes at
+    which this tree's conv is faster in both of its turns than the other
+    tree's in both of its."""
+    out = {}
+    for tree in ("other", "this"):
+        for i, kind in enumerate(("quantize", "conv")):
+            out[f"{tree}_{kind}_ms"] = [
+                sum(r["turns"][tree][j][i] * r["n"] for r in rows)
+                for j in range(2)]
+    out["conv_faster_shapes"] = sum(
+        max(c for _, c in r["turns"]["this"])
+        < min(c for _, c in r["turns"]["other"]) for r in rows)
+    out["shapes"] = len(rows)
+    return out
+
+
+def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli, other=None):
     """int8: (a) kernels against plain versions at every distinct conv
     shape of the full-width b1 forward and the P3 box tower at b4, with
     times; (b) the int8 detect call at b1 and b4 (launch counts, timed in
@@ -1291,7 +1406,11 @@ def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli):
 
     log("phase 8a: int8 kernels against their plain versions, every "
         "distinct conv shape at b1 and the P3 box tower at b4 (device "
-        "times: torch.profiler over 5 calls)")
+        "times: CUDA events around 5 calls queued behind a spinning "
+        "kernel, the least of 3)")
+    slots, sms = int8_conv_cuda.card_slots(dev)
+    log(f"  conv tiles (BM, BN): blocks per SM on {sms} SMs (occupancy "
+        "API): " + ", ".join(f"{t} {n // sms}" for t, n in slots.items()))
     mean = torch.as_tensor(BGR_MEAN, device=dev)
 
     def net_input(b):
@@ -1305,8 +1424,8 @@ def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli):
     box_b4 = int8_site_inputs(
         torch, tq, model, scales, net_input(4),
         keep=lambda k: k[0] == (4, 512, *p3) and k[1] == (512, 512, 3, 3))
-    rows = phase8a_kernels(torch, int8_conv_cuda, sites, "b1")
-    rows_b4 = phase8a_kernels(torch, int8_conv_cuda, box_b4, "b4")
+    rows = phase8a_kernels(torch, int8_conv_cuda, sites, "b1", other)
+    rows_b4 = phase8a_kernels(torch, int8_conv_cuda, box_b4, "b4", other)
     per_call = {k: sum(r[k] * r["n"] for r in rows) for k in (
         "quantize_ms", "quantize_plain_ms", "quantize_bound_ms", "conv_ms",
         "conv_plain_ms", "conv_bound_ms", "conv_ops_ms", "conv_bytes_ms",
@@ -1330,6 +1449,28 @@ def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli):
         f"{per_call['int_mm_1x1_ms']:.4f}; plain versions (CUDA events, "
         f"host time included) {per_call['quantize_plain_ms']:.4f} + "
         f"{per_call['conv_plain_ms']:.4f}")
+    per_call["split_sites"] = sum(r["n"] for r in rows if r["plan"][2] > 1)
+    per_call["tera_ops"] = (per_call["conv_ops_ms"] * PEAK_INT8_OPS / 1e12
+                            / per_call["conv_ms"])
+    log(f"  conv per b1 forward: {per_call['tera_ops']:.1f} TOP/s, "
+        f"{per_call['conv_bound_ms'] / per_call['conv_ms']:.1%} of the "
+        f"bound; {per_call['split_sites']} of {INT8_SITES[False]} sites "
+        "split K; quantize "
+        f"{per_call['quantize_bound_ms'] / per_call['quantize_ms']:.1%} of "
+        "its bound")
+    if other is not None:
+        per_call["turns"] = turns_summary(rows)
+        per_call["turns_b4"] = turns_summary(rows_b4)
+        t = per_call["turns"]
+        log("  in turns with the other tree, per b1 forward (device ms, "
+            "other / this / this / other): quantize "
+            f"{t['other_quantize_ms'][0]:.4f} / {t['this_quantize_ms'][0]:.4f}"
+            f" / {t['this_quantize_ms'][1]:.4f} / "
+            f"{t['other_quantize_ms'][1]:.4f}; conv "
+            f"{t['other_conv_ms'][0]:.4f} / {t['this_conv_ms'][0]:.4f} / "
+            f"{t['this_conv_ms'][1]:.4f} / {t['other_conv_ms'][1]:.4f}; "
+            f"this conv faster at {t['conv_faster_shapes']} of "
+            f"{t['shapes']} shapes (both turns)")
 
     log("phase 8b: the int8 detect call, b1 and b4, bf16, "
         f"{N_PLANES} planes, timed in turns bf16, int8, int8, bf16")
@@ -1483,9 +1624,55 @@ def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli):
             "timings": timings, "card_err": card_err, "cli": cli_runs}
 
 
-def main():
+def load_int8_tree(root, alias):
+    """kernels.int8_conv_cuda of the package in checkout `root`, imported
+    under the top-level name `alias` (it builds into that checkout)."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    pkg = Path(root).resolve() / "ground_plane_polling_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{alias}.kernels.int8_conv_cuda")
+
+
+def sass_counts(lib, opcode, function):
+    """{function name: SASS lines naming `opcode`} of the functions of
+    library `lib` whose name holds `function`, from cuobjdump -sass."""
+    from pathlib import Path
+
+    from ground_plane_polling_tpu_torch.kernels.nvcc_build import nvcc
+
+    sass = subprocess.run(
+        [str(Path(nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if function in name:
+                counts[name] = 0
+        elif name in counts and opcode in line:
+            counts[name] += 1
+    return counts
+
+
+def main(argv=None):
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--against", default=None, metavar="ROOT",
+                   help="another checkout (for example the parent commit "
+                   "unpacked with git archive into the gitignored "
+                   "_parent_tree/): phase 8a also times its int8 kernels "
+                   "in turns with this tree's at every shape")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1508,13 +1695,23 @@ def main():
         t0 = time.perf_counter()
         return module.build(), time.perf_counter() - t0
 
+    modules = [polling_cuda, int8_conv_cuda]
+    other = None
+    if args.against:
+        other = load_int8_tree(args.against, "gpp_against")
+        modules.append(other)
     # one nvcc for each source, started together
-    with ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(timed_build, (polling_cuda, int8_conv_cuda)))
+    with ThreadPoolExecutor(len(modules)) as pool:
+        builds = list(pool.map(timed_build, modules))
     for lib, sec in builds:
-        log(f"  built {lib.name} in {sec:.2f} s (in parallel)")
+        log(f"  built {lib} in {sec:.2f} s (in parallel)")
         log("  " + lib.with_suffix(".log").read_text().strip().replace(
             "\n", "\n  "))
+    # the conv kernel runs on warpgroup MMAs: IGMMA in each instance's SASS
+    igmma = sass_counts(builds[1][0], "IGMMA", "conv_kernel")
+    log("  IGMMA instructions in the int8 conv kernel's SASS: "
+        + ", ".join(f"{v} in {k}" for k, v in sorted(igmma.items())))
+    assert igmma and all(v > 0 for v in igmma.values()), igmma
 
     kernel = phase1_kernel(torch, polling_cuda, twin, polling_cases)
     launches, per_call, _ = phase2_main_path(torch, polling_cuda)
@@ -1524,7 +1721,8 @@ def main():
         phase5_fused(torch, polling_cuda)
         phase6_evaluate(torch, polling_cuda, tmp, cli)
         phase7_train(torch, polling_cuda, tmp, cli, smi)
-        int8 = phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli)
+        int8 = phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli,
+                           other)
     log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
         "phase 0's device query")
     pc = int8["per_call"]
@@ -1549,7 +1747,7 @@ def main():
         "name": "int8_quantize",
         "route": "cuda",
         "source": "ground_plane_polling_tpu_torch/csrc/int8_conv.cu",
-        "replaces": "ground_plane_polling_tpu/models/quantize.py:216",
+        "replaces": "ground_plane_polling_tpu/models/quantize.py:222",
         "launches": int8["launches"]["quantize"],
         "max_abs_err": pc["quantize_err"],
         # per b1 int8 forward: the sum over its 136 sites
@@ -1563,7 +1761,7 @@ def main():
         "name": "int8_conv",
         "route": "cuda",
         "source": "ground_plane_polling_tpu_torch/csrc/int8_conv.cu",
-        "replaces": "ground_plane_polling_tpu/models/quantize.py:216",
+        "replaces": "ground_plane_polling_tpu/models/quantize.py:236",
         "launches": int8["launches"]["conv"],
         "max_abs_err": pc["conv_err"],
         "ms": pc["conv_ms"],
@@ -1577,6 +1775,10 @@ def main():
         "conv_1x1_ms": pc["conv_1x1_ms"],
         "box_tower_p3_b4": {k: int8["rows_b4"][0][k] for k in (
             "conv_ms", "conv_plain_ms", "conv_bound_ms", "cudnn_ms")},
+        "tera_ops": pc["tera_ops"],
+        "split_sites": pc["split_sites"],
+        "sass_igmma": sum(igmma.values()),
+        "against": pc.get("turns"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,8 +69,11 @@ def main(argv=None):
                 f"{path}: Keras .h5 interop is ROADMAP A10b")
     if not args.checkpoint.endswith((".npz", ".pt")):
         raise NotImplementedError(
-            f"{args.checkpoint}: JAX orbax checkpoints are ROADMAP A14; "
-            "give an exported .npz or a step_*.pt of bin/train")
+            f"{args.checkpoint}: JAX orbax checkpoints do not load here; "
+            "the JAX package's convert_model "
+            "(ground_plane_polling_tpu/bin/convert_model.py) turns one into "
+            f"an .npz: convert_model {args.checkpoint} out.npz; or give an "
+            "exported .npz or a step_*.pt of bin/train")
 
     import numpy as np
 

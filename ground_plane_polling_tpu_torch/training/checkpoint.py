@@ -3,9 +3,11 @@ ground_plane_polling_tpu/training/checkpoint.py).
 
 A checkpoint is one file `step_{step:08d}.pt` written by `torch.save`: a
 dict of the step, the model's state dict, the optimizer's state dict and
-the lr. The JAX package's orbax checkpoint directories do not load here
-(ROADMAP A14): the format the two packages share is the flat `.npz` of
-`export_params` / `import_params` (models/weights.py).
+the lr. The JAX package's orbax checkpoint directories do not load here:
+the format the two packages share is the flat `.npz` of `export_params` /
+`import_params` (models/weights.py), into which the JAX package's
+convert_model (`ground_plane_polling_tpu/bin/convert_model.py`) turns an
+orbax checkpoint: `convert_model <dir> out.npz`.
 """
 
 from __future__ import annotations
@@ -145,9 +147,11 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     their devices) and return it."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is a directory (a JAX orbax checkpoint?): restoring "
-            "orbax checkpoints is ROADMAP A14; carry weights across as the "
-            ".npz of export_params / import_params")
+            f"{path} is a directory (a JAX orbax checkpoint?): orbax "
+            "checkpoints do not load here; the JAX package's convert_model "
+            "(ground_plane_polling_tpu/bin/convert_model.py) turns one into "
+            f"an .npz: convert_model {path} out.npz, which import_params "
+            "loads")
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     state.model.load_state_dict(ckpt["model"], strict=True)

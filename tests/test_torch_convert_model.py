@@ -140,7 +140,10 @@ def test_fused_export_is_refused(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["in.h5", "out.npz"], "A10b"), (["in.npz", "out.h5"], "A10b"),
-    (["snapshots/step_00000004", "out.npz"], "A14")],
+    (["snapshots/step_00000004", "out.npz"],
+     r"JAX package's convert_model "
+     r"\(ground_plane_polling_tpu/bin/convert_model\.py\) turns one into "
+     r"an \.npz: convert_model snapshots/step_00000004 out\.npz;")],
     ids=["h5_in", "h5_out", "checkpoint_dir"])
 def test_unported_routes_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

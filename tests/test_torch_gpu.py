@@ -354,6 +354,11 @@ INT8_CONV_CASES = {
     "cls_out_96": (3, 1, ((1, 1), (1, 1)), 1, 256, 96, 7, 21),
     "dim_out_36": (3, 1, ((1, 1), (1, 1)), 1, 128, 36, 7, 21),
     "k48_m1": (1, 1, ((0, 0), (0, 0)), 1, 48, 8, 1, 1),
+    # P6: K = 18,432 split across the card
+    "p6_3x3_s2_same_2048": (3, 2, ((1, 1), (0, 1)), 1, 2048, 512, 13, 42),
+    "p7_tower_4x11": (3, 1, ((1, 1), (1, 1)), 1, 512, 512, 4, 11),
+    "layer1_3x3_n64": (3, 1, ((1, 1), (1, 1)), 2, 64, 64, 52, 84),
+    "odd_cout_37": (3, 1, ((1, 1), (1, 1)), 1, 32, 37, 5, 9),
 }
 
 
@@ -375,24 +380,32 @@ def _int8_operands(case, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("layout", ["channels_last", "nchw", "strided"])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw", "strided",
+                                    "channels_last_c3", "unaligned"])
 def test_int8_quantize_matches_plain(cuda, dtype, layout):
     """The quantize kernel equals the plain version bit for bit, on the
     card and on the CPU, with half-way values (k + 1/2) s that must round
-    to even and values past +-127 s that must clamp."""
+    to even and values past +-127 s that must clamp: dense channels-last
+    inputs (the vector path; with C 3 its count is not a multiple of 8, so
+    a tail remains) and every other layout (the general path)."""
     from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda
     from ground_plane_polling_tpu_torch.ops import int8_conv
 
     rng = np.random.RandomState(3)
     s = 0.0371
-    x = rng.normal(0, 40 * s, (2, 48, 9, 13)).astype(np.float32)
+    channels = 3 if layout == "channels_last_c3" else 48
+    x = rng.normal(0, 40 * s, (2, channels, 9, 13)).astype(np.float32)
     x.reshape(-1)[:200] = (np.arange(-100, 100) + 0.5) * np.float32(s)
     x.reshape(-1)[200:210] = 300 * s
     t = torch.from_numpy(x).to(cuda, getattr(torch, dtype))
-    if layout == "channels_last":
+    if layout.startswith("channels_last"):
         t = t.contiguous(memory_format=torch.channels_last)
     elif layout == "strided":
         t = t[:, ::2]
+    elif layout == "unaligned":  # dense channels-last, not 16-byte aligned
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:]
+        t = flat.view(2, 9, 13, channels).copy_(
+            t.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
     before = int8_conv_cuda.QUANTIZE_LAUNCHES
     got = int8_conv_cuda.quantize(t, s)
     assert int8_conv_cuda.QUANTIZE_LAUNCHES == before + 1
@@ -462,3 +475,69 @@ def test_int8_forward_on_the_card_matches_cpu(cuda, tf32_off):
         np.testing.assert_allclose(got[key].cpu().numpy(), ref.numpy(),
                                    rtol=0, atol=1e-6 * float(ref.abs().max()),
                                    err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", ["1", "2", "most"])
+@pytest.mark.parametrize("tile", [f"{bm}x{bn}" for bm, bn in
+                                  ((64, 48), (64, 64), (64, 96), (64, 128),
+                                   (64, 144), (128, 48), (128, 64),
+                                   (128, 96), (128, 128), (128, 144))])
+def test_int8_conv_forced_plans(cuda, tile, splits):
+    """Every compiled tile with 1, 2 and the most splits of K the planner
+    allows: the int32 accumulators and the bf16 output with bias equal the
+    plain versions bit for bit (edges ragged in M and in N for every
+    width), and the split counters are back at 0 after the launch."""
+    from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda as ic
+    from ground_plane_polling_tpu_torch.ops import int8_conv
+
+    bm, bn = map(int, tile.split("x"))
+    assert (bm, bn) in ic.TILES
+    rng = np.random.RandomState(bm + bn)
+    x8 = torch.from_numpy(rng.randint(-127, 128, (1, 7, 21, 256)).astype(
+        np.int8)).to(cuda).permute(0, 3, 1, 2)
+    w8 = torch.from_numpy(rng.randint(-127, 128, (200, 3, 3, 256)).astype(
+        np.int8)).to(cuda).permute(0, 3, 1, 2)
+    s_w = torch.from_numpy(rng.uniform(1e-4, 1e-2, 200).astype(
+        np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(0, 1, 200).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    pad = ((1, 1), (1, 1))
+    steps = -(-w8[0].numel() // ic.K_STEP)
+    count = {"1": 1, "2": 2, "most": ic.split_counts(steps)[-1]}[splits]
+    plan = (bm, bn, count)
+    acc = ic._launch(x8, w8, 0.0, None, None, 1, pad, torch.int32,
+                     plan=plan)
+    assert torch.equal(acc.cpu(), int8_conv.conv2d_int8(x8, w8, 1, pad)
+                       .cpu())
+    y = ic._launch(x8, w8, 0.0173, s_w, bias, 1, pad, torch.bfloat16,
+                   plan=plan)
+    want = int8_conv.int8_conv2d(x8, w8, 0.0173, s_w, bias, 1, pad,
+                                 torch.bfloat16)
+    assert torch.equal(y.cpu(), want.cpu())
+    torch.cuda.synchronize()
+    for _, counters in ic._workspaces.values():
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_int8_conv_split_launches_in_a_row_agree(cuda):
+    """Two split launches in a row on one stream, without a synchronize
+    between them, reuse the workspace and its counters: both equal the
+    plain conv, and the counters are left at 0."""
+    from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda as ic
+    from ground_plane_polling_tpu_torch.ops import int8_conv
+
+    x, s_x, w8, s_w, bias, stride, pad = _int8_operands(
+        "p6_3x3_s2_same_2048", cuda)
+    x8 = ic.quantize(x, s_x)
+    plan = ic.conv_plan(x8, w8, stride, pad)
+    assert plan[2] > 1, plan
+    first = ic.conv2d_accumulate(x8, w8, stride, pad)
+    second = ic.conv2d_accumulate(x8, w8, stride, pad)
+    want = int8_conv.conv2d_int8(x8, w8, stride, pad)
+    assert torch.equal(first.cpu(), want.cpu())
+    assert torch.equal(second.cpu(), want.cpu())
+    stream = torch._C._cuda_getCurrentRawStream(x8.device.index)
+    _, counters = ic._workspaces[(x8.device.index, stream)]
+    assert int(counters.abs().sum()) == 0

@@ -6,6 +6,7 @@ bin/train CLI on the prepared fixture split."""
 
 import json
 import os
+import re
 import shutil
 import threading
 import time
@@ -198,7 +199,12 @@ def test_checkpoint_round_trip(tmp_path):
     other = _tiny_state(lr=1.0)
     restored = checkpoint.restore_checkpoint(path, other)
     _assert_same_state(restored, state)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError,
+                       match=r"JAX package's convert_model "
+                       r"\(ground_plane_polling_tpu/bin/convert_model\.py\) "
+                       r"turns one into an \.npz: convert_model "
+                       + re.escape(str(tmp_path)) + r" out\.npz, which "
+                       r"import_params loads"):
         checkpoint.restore_checkpoint(str(tmp_path), other)
     # the weights' .npz export round trip
     model = shrunk_torch_model()
