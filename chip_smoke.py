@@ -64,7 +64,21 @@ Phases (any failure exits non-zero before the last line):
      its detections against bf16's, and a float32 int8 forward, card
      against CPU on one set of scales; (c) run_network, serve and evaluate
      with --int8, each launching the conv kernel.
-Phases 4-8 each drive their path with the launch counts set to 0 and fail
+  9. data parallel and --remat at phase 7's full width (ResNet-50, FPN 512,
+     416x1344, b2, augmentation): (a) a 1-rank NCCL group: the DDP-wrapped
+     fused bf16 step timed in turns with phase 7a's plain step (CUDA
+     events, 20 steps after 3), no host sync in a warm-up step, and one
+     float32 step (TF32 off) whose gradients equal the plain step's; (b)
+     two rank processes on the one card over gloo (NCCL refuses two ranks
+     on one device), each launched with a timeout and joined: the f32 and
+     bf16 steps on one row each of the global b2 batch against the single
+     process's b2 step, bin/train --data-parallel --tensorboard-dir (only
+     rank 0 writes; both log one mAP; the checkpoint resumes in one
+     process) and bin/evaluate --data-parallel, float and --int8 2, equal
+     to one process's, with the kernels' launches counted on each rank;
+     (c) the bf16 step with and without --remat: peak memory, step time in
+     turns, and equal float32 gradients.
+Phases 4-9 each drive their path with the launch counts set to 0 and fail
 if a kernel of the path was not launched.
 
 Prints the kernel table as one JSON line, then as the last line
@@ -871,16 +885,18 @@ def write_train_split(tmp, cli, n_train=8, n_val=2):
     return root
 
 
-def train_model(torch, dev, stages=None, features=512, cls_std=None):
-    """Seeded detector (ResNet-50 and FPN 512 unless shrunk), float32
-    parameters on `dev`, channels-last on the card."""
+def train_model(torch, dev, stages=None, features=512, cls_std=None,
+                remat=False):
+    """Seeded detector (ResNet-50 and FPN 512 unless shrunk; `remat`
+    recomputes its blocks in the backward pass), float32 parameters on
+    `dev`, channels-last on the card."""
     from ground_plane_polling_tpu_torch.models import (GPPRetinaNet,
                                                        build_detector,
                                                        init_detector)
     from ground_plane_polling_tpu_torch.models.resnet import ResNetBackbone
 
-    model = (build_detector("resnet50") if stages is None else GPPRetinaNet(
-        ResNetBackbone(stages), feature_size=features))
+    model = (build_detector("resnet50", remat=remat) if stages is None
+             else GPPRetinaNet(ResNetBackbone(stages), feature_size=features))
     init_detector(model, SEED)
     if cls_std is not None:  # gradients through the classification tower
         out = model.classification.cls_out
@@ -1624,6 +1640,575 @@ def phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli, other=None):
             "timings": timings, "card_err": card_err, "cli": cli_runs}
 
 
+DP_RANKS = 2  # phase 9b: two ranks on the one card, over gloo
+DP_WARMUP, DP_TIMED = 3, 20
+REMAT_WARMUP, REMAT_TIMED = 2, 10
+RANK_TIMEOUT = 480  # seconds for phase 9b's rank processes
+GROUP_TIMEOUT = 300  # seconds, their process group's (GPP_DIST_INIT_TIMEOUT)
+# phase 9b: the ranks' bf16 step's loss terms against the 1-process
+# step's at the same global batch: each rank's convolutions run one row,
+# the single process's all of them, and bf16 rounds them otherwise; two
+# ranks on one card measured 6.57e-5 in two runs (PERF.md)
+DP_BF16_RTOL = 1e-3
+NO_CLIP = float("inf")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_batches(torch, root, dev, n, mesh=None, batch=TRAIN_BATCH):
+    """The phase 7 loader (augmentation, raw batches, seed SEED) over the
+    split at `root`, this rank's rows with a mesh, and its first n
+    batches."""
+    from ground_plane_polling_tpu_torch.data.kitti import KittiDataset
+    from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
+
+    loader = KittiLoader(KittiDataset(root, "train"), batch_size=batch,
+                         augment=True, raw_batches=True, seed=SEED,
+                         device=dev, mesh=mesh, image_min_side=TRAIN_SIDES[0],
+                         image_max_side=TRAIN_SIDES[1])
+    batches = []
+    while len(batches) < n:
+        batches += list(loader.epoch(prefetch=0))[:n - len(batches)]
+    return loader, batches
+
+
+def one_step(torch, dev, loader, raw, bf16, mesh=None, remat=False,
+             clipnorm=1e-3, dtype="float32"):
+    """One fused step of the seeded full-width detector (parameters in
+    `dtype`): its loss terms and its gradients (after the clip at
+    `clipnorm`) on the host."""
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    model = train_model(torch, dev, remat=remat).to(getattr(torch, dtype))
+    state = create_train_state(model, make_optimizer(model, 1e-5))
+    step = make_fused_train_step(loader=loader, bf16=bf16, clipnorm=clipnorm,
+                                 mesh=mesh)
+    _, m = step(state, raw)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()})
+
+
+def compare_steps(got, want, label, rtol=1e-4):
+    """Loss terms within rtol and each gradient tensor within 1e-3 of its
+    norm (test_one_f32_step_matches_jax's tolerances); the worst of each."""
+    (terms, grads), (want_terms, want_grads) = got, want
+    worst_term = max(abs(terms[k] - v) / abs(v) for k, v in want_terms.items())
+    assert worst_term <= rtol, (label, terms, want_terms)
+    ratios = {}
+    for k, g in want_grads.items():
+        norm = float(g.norm())
+        gap = float((grads[k] - g).abs().max())
+        assert gap <= 1e-3 * norm, (label, k, gap, norm)
+        ratios[k] = gap / norm if norm else 0.0
+    worst = max(ratios.values())
+    top = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  {label}: loss terms within {worst_term:.3e} (rtol {rtol:g}); "
+        f"each gradient within {worst:.3e} of its norm (bound 1e-3) over "
+        f"{len(want_grads)} tensors, median "
+        f"{np.median(list(ratios.values())):.3e}; the worst: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in top))
+    return worst_term, worst
+
+
+def timed_turns(torch, runs, batches):
+    """CUDA-event ms of each run's step over `batches`, the runs in turns
+    step by step: {name: [ms]}; the steps' metrics must be finite."""
+    events = {name: [] for name in runs}
+    metrics = []
+    for raw in batches:
+        for name, run in runs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run[0], m = run[1](run[0], raw)
+            stop.record()
+            events[name].append((start, stop))
+            metrics.append(m["loss"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.stack(metrics)).all()
+    return {name: np.array([a.elapsed_time(b) for a, b in ev])
+            for name, ev in events.items()}
+
+
+def device_busy(torch, runs, batches):
+    """{name: (device ms a step summed over streams, of it NCCL's kernels,
+    kernels and copies a step, host ms a step to enqueue, device ms a step
+    by kernel name)} of each run over `batches`: torch.profiler, then the
+    host clock around the steps before the synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    n = len(batches)
+    for name, run in runs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for raw in batches:
+                run[0], _ = run[1](run[0], raw)
+            torch.cuda.synchronize()
+        # kernels and copies: a record_function range also lands on the
+        # device's timeline (DDP's forward is one), and is no device work
+        on_device = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and "annotation" not in str(
+                         getattr(e, "activity_type", "")).lower()]
+        nccl = [e for e in on_device if "nccl" in e.name.lower()]
+        t0 = time.perf_counter()
+        for raw in batches:
+            run[0], _ = run[1](run[0], raw)
+        enqueue = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        by_name = collections.Counter()
+        for e in on_device:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
+        out[name] = tuple(v / n for v in (
+            sum(e.time_range.elapsed_us() for e in on_device) / 1e3,
+            sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
+            len(on_device))) + (enqueue, by_name)
+    return out
+
+
+def phase9a_nccl(torch, root, smi):
+    """The DDP-wrapped fused bf16 step on a 1-rank NCCL group against the
+    plain step, in turns; its host syncs; its f32 gradients."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ground_plane_polling_tpu_torch.parallel import data_parallel_mesh
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    log(f"phase 9a: 1-rank NCCL group, DDP fused bf16 step at b"
+        f"{TRAIN_BATCH}, {DP_TIMED} steps after {DP_WARMUP}, in turns with "
+        "phase 7a's plain step")
+    dev = torch.device("cuda")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = data_parallel_mesh()
+        assert dist.get_backend() == "nccl" and mesh.size == 1
+        loader, batches = train_batches(torch, root, dev,
+                                        DP_WARMUP + DP_TIMED, mesh)
+        runs = {}
+        for name, m in (("plain", None), ("ddp", mesh)):
+            model = train_model(torch, dev)
+            runs[name] = [create_train_state(model, make_optimizer(model,
+                                                                   1e-5)),
+                          make_fused_train_step(loader=loader, bf16=True,
+                                                mesh=m)]
+        timed_turns(torch, runs, batches[:DP_WARMUP - 1])
+        state, step = runs["ddp"]
+        torch.cuda.synchronize()
+        (runs["ddp"][0], _), syncs = host_syncs(
+            torch, lambda: step(state, batches[DP_WARMUP - 1]))
+        torch.cuda.synchronize()
+        assert not syncs, f"the DDP step waits for the card at {syncs}"
+        runs["plain"][0], _ = runs["plain"][1](runs["plain"][0],
+                                               batches[DP_WARMUP - 1])
+        ms = timed_turns(torch, runs, batches[DP_WARMUP:])
+        result = {name: {"median_ms": float(np.median(v)),
+                         "p90_ms": float(np.percentile(v, 90))}
+                  for name, v in ms.items()}
+        for name, r in result.items():
+            log(f"  {smi}: {name} step median {r['median_ms']:.3f} ms, p90 "
+                f"{r['p90_ms']:.3f} ms (CUDA events, in turns)")
+        log("  host-device synchronizations in a DDP step: 0 "
+            "(torch.cuda.set_sync_debug_mode over one warm-up step)")
+        result["host_syncs"] = len(syncs)
+        busy_runs = device_busy(torch, runs, batches[-3:])
+        for name, (busy, nccl, kernels, enqueue, _) in busy_runs.items():
+            result[name].update(device_busy_ms=busy, nccl_ms=nccl,
+                                kernels=kernels, enqueue_ms=enqueue)
+            log(f"  {name}: device busy {busy:.3f} ms a step summed over "
+                f"streams, {nccl:.3f} of it NCCL's kernels, {kernels:.0f} "
+                "kernels and copies a step (torch.profiler over 3 steps); "
+                f"the host enqueues a step in {enqueue:.3f} ms (host clock "
+                "over 3 steps before the synchronize)")
+        more = busy_runs["ddp"][4].copy()
+        more.subtract(busy_runs["plain"][4])
+        log("  device ms a step that DDP adds, by kernel or copy: " + "; ".join(
+            f"{k[:60]} {v:+.3f}" for k, v in more.most_common(4)))
+        del runs
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        raw = batches[0]
+        result["f32"] = compare_steps(
+            one_step(torch, dev, loader, raw, False, mesh),
+            one_step(torch, dev, loader, raw, False),
+            "f32 step, TF32 off: DDP (1-rank NCCL) against plain, post-clip")
+    finally:
+        dist.destroy_process_group()
+    return result
+
+
+def grad_dtype(backend):
+    """The dtype of 9b's gradient comparison: float32 for two ranks on one
+    card (one row a rank against two: 7.0e-4 of a norm at worst, PERF.md);
+    float64 across cards, where one row a rank against the single
+    process's N rows rounds float32 further (a ReLU input on the other
+    side of 0, a bias summed over cancelling terms), as
+    tests/test_torch_distributed.py's docstring sets out."""
+    return "float32" if backend == "gloo" else "float64"
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms (the gradient comparison of 9b
+    then reads the same sums in every run), restored after."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def dp_train_args(work, extra=(), batch=TRAIN_BATCH):
+    """bin/train on phase 7d's split: 1 epoch of 2 steps, bf16,
+    augmentation, the validation sweep."""
+    return (["--batch-size", str(batch), "--epochs", "1", "--steps",
+             "2", "--bf16", "--random-transform", "--device", "cuda",
+             "--snapshot-path", os.path.join(work, "dp_snaps"),
+             "--log-path", os.path.join(work, "dp_log.jsonl"),
+             "--tensorboard-dir", os.path.join(work, "dp_tb"),
+             "--image-min-side", str(TRAIN_SIDES[0]), "--image-max-side",
+             str(TRAIN_SIDES[1])] + list(extra)
+            + ["kitti", os.path.join(work, "kitti_train")])
+
+
+def dp_evaluate_args(work, extra=()):
+    return [os.path.join(work, "eval_model.npz"), os.path.join(work, "kitti"),
+            "--device", "cuda"] + list(extra)
+
+
+def rank_worker(rank, port, work, world, backend):
+    """Rank `rank` of phase 9b's `world` ranks over `backend`: the f32 (no
+    clip) and bf16 steps on its row of the global batch of `world` rows,
+    with NCCL (one card a rank) the DDP bf16 step timed, then bin/train
+    and bin/evaluate --data-parallel; what it saw goes to
+    work/rank{rank}.pt."""
+    import torch
+
+    from ground_plane_polling_tpu_torch.bin import evaluate
+    from ground_plane_polling_tpu_torch.bin import train as train_cli
+    from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
+                                                        polling_cuda)
+    from ground_plane_polling_tpu_torch.parallel import (data_parallel_mesh,
+                                                         initialize)
+
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    initialize(f"localhost:{port}", world, rank, backend=backend)
+    mesh = data_parallel_mesh()
+    dev = mesh.device
+    out = {"device": str(dev)}
+    root = os.path.join(work, "kitti_train")
+    loader, (raw,) = train_batches(torch, root, dev, 1, mesh, world)
+    out["rows"] = int(raw["images"].shape[0])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with deterministic_cudnn(torch):
+        out["f32"] = one_step(torch, dev, loader, raw, False, mesh,
+                              clipnorm=NO_CLIP, dtype=grad_dtype(backend))
+    out["bf16"] = one_step(torch, dev, loader, raw, True, mesh)[0]
+    out["steps_s"] = time.perf_counter() - t0
+    if backend == "nccl":
+        loader, batches = train_batches(torch, root, dev,
+                                        DP_WARMUP + DP_TIMED, mesh, world)
+        model = train_model(torch, dev)
+        run = [create_train_state(model, make_optimizer(model, 1e-5)),
+               make_fused_train_step(loader=loader, bf16=True, mesh=mesh)]
+        timed_turns(torch, {"ddp": run}, batches[:DP_WARMUP])
+        out["ddp_ms"] = timed_turns(torch, {"ddp": run},
+                                    batches[DP_WARMUP:])["ddp"].tolist()
+        del run, model
+
+    polling_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = train_cli.main(dp_train_args(work, ["--data-parallel"],
+                                             world))
+    import ast
+
+    out["train"] = {"step": state.step, "launches": polling_cuda.LAUNCHES,
+                    "s": time.perf_counter() - t0, "record": ast.literal_eval(
+                        buf.getvalue().strip().splitlines()[-1])}
+    for name, extra in (("float", []), ("int8", ["--int8", "2"])):
+        polling_cuda.LAUNCHES = 0
+        int8_conv_cuda.CONV_LAUNCHES = int8_conv_cuda.QUANTIZE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            mean_ap, errors = evaluate.main(dp_evaluate_args(
+                work, ["--data-parallel"] + extra))
+        out[name] = {"mAP": mean_ap, "errors": errors,
+                     "s": time.perf_counter() - t0,
+                     "launches": (polling_cuda.LAUNCHES,
+                                  int8_conv_cuda.CONV_LAUNCHES,
+                                  int8_conv_cuda.QUANTIZE_LAUNCHES)}
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase9b_ranks(torch, work, eval_b1, smi, world=DP_RANKS,
+                  backend="gloo"):
+    """`world` rank processes, each launched with a timeout and joined,
+    each held against the single process here: by default two on the one
+    card over gloo (NCCL refuses two ranks on one device); with
+    --dp-cards, one a card over NCCL."""
+    from ground_plane_polling_tpu_torch.bin import evaluate
+    from ground_plane_polling_tpu_torch.bin import train as train_cli
+
+    where = ("on the one card over gloo (times include gloo's copies "
+             "through the host; not a DDP speed)" if backend == "gloo"
+             else "one a card over NCCL")
+    log(f"phase 9b: {world} ranks {where}: f32 and bf16 steps at global "
+        f"b{world} against one process, bin/train and bin/evaluate "
+        "--data-parallel")
+    t0 = time.perf_counter()
+    port = free_port()
+    env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
+               NUM_PROCESSES=str(world),
+               GPP_DIST_INIT_TIMEOUT=str(GROUP_TIMEOUT))
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--port", str(port), "--work", work, "--dp-cards", str(world),
+         "--backend", backend],
+        env=dict(env, PROCESS_ID=str(r)), stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        # the single process's side, while the ranks run
+        dev = torch.device("cuda")
+        loader, (raw,) = train_batches(torch, os.path.join(work,
+                                                           "kitti_train"),
+                                       dev, 1, batch=world)
+        with deterministic_cudnn(torch):
+            want_f32 = one_step(torch, dev, loader, raw, False,
+                                clipnorm=NO_CLIP, dtype=grad_dtype(backend))
+        want_bf16 = one_step(torch, dev, loader, raw, True)[0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            want_int8 = evaluate.main(dp_evaluate_args(
+                work, ["--int8", "2", "--eval-batch", "1"]))
+        deadline = time.monotonic() + RANK_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" \
+            + text[-4000:]
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    log(f"  ranks on {[r['device'] for r in ranks]}, "
+        f"{[r['rows'] for r in ranks]} rows each of the b{world} batch")
+
+    result = {}
+    for r, got in enumerate(ranks):
+        result[f"f32_rank{r}"] = compare_steps(
+            got["f32"], want_f32, f"rank {r}: {grad_dtype(backend)} step, "
+            "TF32 off, against 1 process, pre-clip")
+    for k, g in ranks[0]["f32"][1].items():
+        for other in ranks[1:]:
+            assert torch.equal(other["f32"][1][k], g), k
+    bf16_gap = max(abs(r["bf16"][k] - v) / abs(v) for r in ranks
+                   for k, v in want_bf16.items())
+    log(f"  bf16 step: loss terms within {bf16_gap:.3e} of 1 process's "
+        f"(rtol {DP_BF16_RTOL:g}); the ranks' f32 gradients are equal; "
+        f"steps {[round(r['steps_s'], 2) for r in ranks]} s a rank")
+    assert bf16_gap <= DP_BF16_RTOL, (bf16_gap, [r["bf16"] for r in ranks],
+                                      want_bf16)
+    result["bf16_gap"] = bf16_gap
+
+    records = [r["train"]["record"] for r in ranks]
+    for r, got in enumerate(ranks):
+        assert got["train"]["step"] == 2 and got["train"]["launches"] > 0, r
+    assert all(r["mAP"] == records[0]["mAP"] for r in records), records
+    with open(os.path.join(work, "dp_log.jsonl")) as f:
+        assert len(f.read().splitlines()) == 1
+    assert len(os.listdir(os.path.join(work, "dp_tb"))) == 1
+    snaps = os.path.join(work, "dp_snaps")
+    assert os.listdir(snaps) == ["step_00000002.pt"], os.listdir(snaps)
+    names = torch.load(os.path.join(snaps, "step_00000002.pt"),
+                       weights_only=True)["model"]
+    assert not [k for k in names if k.startswith("module.")]
+    log(f"  bin/train --data-parallel --tensorboard-dir: "
+        f"{[round(r['train']['s'], 2) for r in ranks]} s a rank, polling "
+        f"launches {[r['train']['launches'] for r in ranks]}, mAP "
+        f"{records[0]['mAP']:.6g} on every rank; one log line, one event "
+        "file, one checkpoint (no `module.` names)")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_cli.main(dp_train_args(work, [
+            "--snapshot", "auto", "--no-evaluation", "--steps", "1"], world))
+    assert state.step == 3, state.step
+    log(f"  1-process bin/train --snapshot auto from the {world}-rank "
+        f"checkpoint: step 2 -> {state.step} "
+        f"({time.perf_counter() - t1:.2f} s)")
+
+    for name, want in (("float", eval_b1), ("int8", want_int8)):
+        want_ap, want_errors = want
+        for r, got in enumerate(ranks):
+            polls, convs, quants = got[name]["launches"]
+            assert polls > 0, (name, r)
+            if name == "int8":
+                assert convs > 0 and convs % INT8_SITES[False] == 0, convs
+                assert quants > 0
+            assert abs(got[name]["mAP"] - want_ap) <= 1e-6, (name, r)
+            for k, v in want_errors.items():
+                assert abs(got[name]["errors"][k] - v) <= 1e-4, (name, r, k)
+        log(f"  bin/evaluate --data-parallel {name}: "
+            f"{[round(r[name]['s'], 2) for r in ranks]} s a rank, launches "
+            "(polling, int8 conv, quantize) "
+            f"{[r[name]['launches'] for r in ranks]}; mAP "
+            f"{ranks[0][name]['mAP']:.6g} == 1 process's --eval-batch 1 "
+            f"{want_ap:.6g} (mAP within 1e-6, errors within 1e-4)")
+        result[f"evaluate_{name}_s"] = [r[name]["s"] for r in ranks]
+    result["launches"] = {f"rank{r}": {
+        "train_polling": got["train"]["launches"],
+        "evaluate_polling": got["float"]["launches"][0],
+        "evaluate_int8": list(got["int8"]["launches"])}
+        for r, got in enumerate(ranks)}
+    if backend == "nccl":
+        result["scaling"] = dp_scaling(torch, work, ranks, world, smi)
+    log(f"  phase 9b wall: {time.perf_counter() - t0:.2f} s")
+    return result
+
+
+def dp_scaling(torch, work, ranks, world, smi):
+    """The ranks' DDP bf16 step (one row a card) against one card's plain
+    step at b1 and at b`world`, timed here in turns after the ranks."""
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    dev = torch.device("cuda")
+    root = os.path.join(work, "kitti_train")
+    runs, batches = {}, {}
+    for b in (1, world):
+        loader, batches[b] = train_batches(torch, root, dev,
+                                           DP_WARMUP + DP_TIMED, batch=b)
+        model = train_model(torch, dev)
+        runs[b] = [create_train_state(model, make_optimizer(model, 1e-5)),
+                   make_fused_train_step(loader=loader, bf16=True)]
+    ms = {}
+    for i in range(DP_WARMUP + DP_TIMED):
+        for b, run in runs.items():
+            ms.setdefault(b, []).append(timed_turns(
+                torch, {b: run}, [batches[b][i]])[b][0])
+    out = {f"one_card_b{b}_ms": float(np.median(v[DP_WARMUP:]))
+           for b, v in ms.items()}
+    out["ranks_ddp_ms"] = [float(np.median(r["ddp_ms"])) for r in ranks]
+    ddp = max(out["ranks_ddp_ms"])
+    out["img_s"] = {"ddp": world / ddp * 1e3,
+                    **{f"one_card_b{b}": b / out[f"one_card_b{b}_ms"] * 1e3
+                       for b in runs}}
+    log(f"  {smi}: DDP step, 1 row on each of {world} cards: median "
+        f"{out['ranks_ddp_ms']} ms by rank ({out['img_s']['ddp']:.2f} img/s "
+        f"at the slowest); one card, plain: b1 {out['one_card_b1_ms']:.3f} "
+        f"ms, b{world} {out[f'one_card_b{world}_ms']:.3f} ms (CUDA events, "
+        f"{DP_TIMED} steps after {DP_WARMUP}); img/s {out['img_s']}")
+    return out
+
+
+def phase9c_remat(torch, root, smi):
+    """The b2 bf16 step with and without --remat: peak memory, step time in
+    turns, and the f32 gradients."""
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    log(f"phase 9c: --remat, fused bf16 step at b{TRAIN_BATCH}: peak memory "
+        f"alone, then {REMAT_TIMED} steps after {REMAT_WARMUP} in turns")
+    dev = torch.device("cuda")
+    loader, batches = train_batches(torch, root, dev,
+                                    REMAT_WARMUP + REMAT_TIMED)
+    def build(remat):
+        model = train_model(torch, dev, remat=remat)
+        run = [create_train_state(model, make_optimizer(model, 1e-5)),
+               make_fused_train_step(loader=loader, bf16=True)]
+        for raw in batches[:REMAT_WARMUP]:
+            run[0], _ = run[1](run[0], raw)
+        torch.cuda.synchronize()
+        return run
+
+    result = {}
+    variants = (("plain", False), ("remat", True))
+    for name, remat in variants:  # each alone on the card
+        run = build(remat)
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run[0], _ = run[1](run[0], batches[REMAT_WARMUP])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        result[name] = {"peak_gib": peak / 2**30,
+                        "step_gib": (peak - resident) / 2**30}
+        del run
+    runs = {name: build(remat) for name, remat in variants}
+    ms = timed_turns(torch, runs, batches[REMAT_WARMUP:])
+    for name, v in ms.items():
+        result[name]["median_ms"] = float(np.median(v))
+        log(f"  {smi}: {name}: step median {np.median(v):.3f} ms (CUDA "
+            f"events, in turns); peak {result[name]['peak_gib']:.3f} GiB, "
+            f"{result[name]['step_gib']:.3f} GiB above the resident state "
+            "(max_memory_allocated)")
+    del runs
+    raw = batches[0]
+    result["f32"] = compare_steps(
+        one_step(torch, dev, loader, raw, False, remat=True,
+                 clipnorm=NO_CLIP),
+        one_step(torch, dev, loader, raw, False, clipnorm=NO_CLIP),
+        "f32 step, TF32 off: remat against plain, pre-clip")
+    return result
+
+
+def dp_cards(torch, polling_cuda, smi, world):
+    """--dp-cards: phase 6's and phase 7's splits, then phase 9b over
+    NCCL, one rank a card."""
+    assert torch.cuda.device_count() >= world, torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(SEED + 1)
+        cli = {"base": rng.randint(0, 256, (375, 1242, 3)).astype(np.uint8)}
+        evaluated = phase6_evaluate(torch, polling_cuda, tmp, cli)
+        write_train_split(tmp, cli)
+        result = phase9b_ranks(torch, tmp, evaluated["b1"], smi, world,
+                               "nccl")
+    print(smi)
+    print(json.dumps({"data_parallel": result}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def phase9_parallel(torch, tmp, smi, eval_b1):
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "kitti_train")
+    result = {"9a": phase9a_nccl(torch, root, smi),
+              "9b": phase9b_ranks(torch, tmp, eval_b1, smi),
+              "9c": phase9c_remat(torch, root, smi)}
+    log(f"  phase 9 wall: {time.perf_counter() - t_phase:.2f} s")
+    return result
+
+
 def load_int8_tree(root, alias):
     """kernels.int8_conv_cuda of the package in checkout `root`, imported
     under the top-level name `alias` (it builds into that checkout)."""
@@ -1672,10 +2257,22 @@ def main(argv=None):
                    "unpacked with git archive into the gitignored "
                    "_parent_tree/): phase 8a also times its int8 kernels "
                    "in turns with this tree's at every shape")
+    p.add_argument("--dp-cards", type=int, default=None, metavar="N",
+                   help="only phase 9b, over NCCL with one rank on each of "
+                   "N cards (a machine with N cards), with the DDP step "
+                   "timed against one card's")
+    # phase 9b's rank processes (the script starts them itself)
+    p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--work", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.rank is not None:
+        return rank_worker(args.rank, args.port, args.work, args.dp_cards,
+                           args.backend)
     from concurrent.futures import ThreadPoolExecutor
 
     from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
@@ -1713,16 +2310,19 @@ def main(argv=None):
         + ", ".join(f"{v} in {k}" for k, v in sorted(igmma.items())))
     assert igmma and all(v > 0 for v in igmma.values()), igmma
 
+    if args.dp_cards:
+        return dp_cards(torch, polling_cuda, smi, args.dp_cards)
     kernel = phase1_kernel(torch, polling_cuda, twin, polling_cases)
     launches, per_call, _ = phase2_main_path(torch, polling_cuda)
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase3_cli(torch, polling_cuda, twin, tmp)
         phase4_serve(torch, polling_cuda, tmp, cli)
         phase5_fused(torch, polling_cuda)
-        phase6_evaluate(torch, polling_cuda, tmp, cli)
+        evaluated = phase6_evaluate(torch, polling_cuda, tmp, cli)
         phase7_train(torch, polling_cuda, tmp, cli, smi)
         int8 = phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli,
                            other)
+        parallel = phase9_parallel(torch, tmp, smi, evaluated["b1"])
     log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
         "phase 0's device query")
     pc = int8["per_call"]
@@ -1743,6 +2343,9 @@ def main(argv=None):
         "launches_per_call": per_call,
         "ms_b1": kernel["ms_b1"],
         "ms_b4": kernel["ms_b4"],
+        # phase 9b, each rank: bin/train's sweep, bin/evaluate float and
+        # --int8 (polling, int8 conv, quantize)
+        "launches_data_parallel": parallel["9b"]["launches"],
     }, {
         "name": "int8_quantize",
         "route": "cuda",

@@ -8,6 +8,11 @@ calibrated on the first N eval images.
       kitti-data --subset val
 
 Prints one line per bucket, then {"mAP": ..., "keypoint_error": ...}.
+
+--data-parallel splits the sweep over the processes of a launch
+(COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID; one per card): each
+group holds one image a process, and every process prints the same
+results.
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ def parse_args(argv):
     p.add_argument("--fuse-towers", action="store_true",
                    help="run the cls+dim heads as one block-diagonal tower "
                         "(identical outputs)")
-    p.add_argument("--eval-batch", type=int, default=4,
+    p.add_argument("--eval-batch", type=int, default=None,
                    help="same-shape images per detect call (identical "
-                        "results)")
+                        "results; default 4; ignored under "
+                        "--data-parallel)")
     p.add_argument("--int8", type=int, nargs="?", const=8, default=0,
                    metavar="N",
                    help="run every conv int8 (post-training quantization), "
@@ -46,17 +52,15 @@ def parse_args(argv):
     p.add_argument("--int8-percentile", type=float, default=100.0,
                    help="clip each conv input's calibrated range to this "
                         "percentile of |x| (100 = absmax)")
-    # option of the JAX CLI that the port does not have yet
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP A15)")
+                   help="split the sweep over the processes of the launch "
+                        "(one image a process in each group; identical "
+                        "results)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported yet (ROADMAP A15)")
 
     import torch
 
@@ -64,9 +68,23 @@ def main(argv=None):
     from ..data.pipeline import KittiLoader
     from ..inference import place_model, require_device
     from ..models import build_detector, load_weights
+    from ..parallel import data_parallel_mesh, initialize, is_multi_host
     from ..training.loop import evaluate_model
 
     device = require_device(args.device)
+    initialize(device=device)  # a no-op without a multi-process launch
+    mesh = None
+    if args.data_parallel:
+        if is_multi_host():
+            mesh = data_parallel_mesh(device=device)
+            device = mesh.device
+            if args.eval_batch is not None:  # explicit: warn it's ignored
+                print("note: --eval-batch is ignored with --data-parallel "
+                      "(groups are mesh-sized)", file=sys.stderr)
+        else:
+            print("note: --data-parallel requested but only one device is "
+                  "visible; falling back to single-device batching",
+                  file=sys.stderr)
     # float32 means float32: no TF32 in convs or matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -90,7 +108,8 @@ def main(argv=None):
         model, loader, num_classes=num_classes,
         score_threshold=args.score_threshold,
         max_detections=args.max_detections,
-        iou_threshold=args.iou_threshold, eval_batch=args.eval_batch,
+        iou_threshold=args.iou_threshold, mesh=mesh,
+        eval_batch=args.eval_batch if args.eval_batch is not None else 4,
         int8_calib=args.int8, int8_percentile=args.int8_percentile)
 
     for bucket, (ap, n) in sorted(aps.items()):

@@ -12,6 +12,13 @@ the newest checkpoint under --snapshot-path. Training steps prepare each batch (
 targets) inside the step (--fused-prepare, the default) or in the loader's
 producer thread (--no-fused-prepare); the validation sweep runs the
 detector, polling kernel included, after each epoch.
+
+Data parallel: one process per card, each launched with
+COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=r and
+--data-parallel (rank r drives cuda:(r % cards); NCCL). --batch-size is
+the global batch and must divide by N; only rank 0 writes the log, the
+events and the checkpoints. One process, or no --data-parallel, trains on
+its own.
 """
 
 from __future__ import annotations
@@ -64,13 +71,18 @@ def parse_args(argv):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
-    # options of the JAX CLI that the port does not have yet
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP A15)")
+                   help="shard each batch over the processes of the "
+                        "launch (COORDINATOR_ADDRESS, NUM_PROCESSES, "
+                        "PROCESS_ID): one process per device")
     p.add_argument("--remat", action="store_true",
-                   help="not ported yet (ROADMAP A17)")
+                   help="rematerialize the backbone's blocks on the "
+                        "backward pass: less memory, about one more "
+                        "forward")
     p.add_argument("--tensorboard-dir", default=None,
-                   help="not ported yet (ROADMAP A17)")
+                   help="also mirror each epoch's scalars into "
+                        "TensorBoard event files")
+    # options of the JAX CLI that the port does not have yet
     p.add_argument("--backbone-h5", default=None,
                    help="not ported yet (ROADMAP A10b)")
     p.add_argument("--imagenet-weights", action="store_true",
@@ -78,9 +90,7 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
-_UNPORTED = (("data_parallel", "A15"), ("remat", "A17"),
-             ("tensorboard_dir", "A17"), ("backbone_h5", "A10b"),
-             ("imagenet_weights", "A17"))
+_UNPORTED = (("backbone_h5", "A10b"), ("imagenet_weights", "A17"))
 
 
 def main(argv=None):
@@ -105,6 +115,7 @@ def main(argv=None):
     from ..inference import require_device
     from ..models import RESNET_STAGES, build_detector, init_detector
     from ..models import load_weights
+    from ..parallel import data_parallel_mesh, initialize, is_multi_host
     from ..training.checkpoint import latest_checkpoint, restore_checkpoint
     from ..training.loop import fit
     from ..training.train import (create_train_state, make_fused_train_step,
@@ -115,6 +126,11 @@ def main(argv=None):
             f"backbone {args.backbone!r}: the port has "
             f"{sorted(RESNET_STAGES)}; other backbones are ROADMAP A17")
     device = require_device(args.device)
+    initialize(device=device)  # a no-op without a multi-process launch
+    mesh = None
+    if args.data_parallel and is_multi_host():
+        mesh = data_parallel_mesh(device=device)
+        device = mesh.device
     if not args.bf16:
         # float32 means float32: no TF32 in convs or matmuls
         torch.backends.cudnn.allow_tf32 = False
@@ -126,7 +142,7 @@ def main(argv=None):
         image_min_side=args.image_min_side,
         image_max_side=args.image_max_side,
         augment=args.random_transform,
-        raw_batches=args.fused_prepare, device=device)
+        raw_batches=args.fused_prepare, device=device, mesh=mesh)
     val_loader = None
     if not args.no_evaluation:
         val_loader = KittiLoader(
@@ -134,7 +150,8 @@ def main(argv=None):
             image_min_side=args.image_min_side,
             image_max_side=args.image_max_side, shuffle=False, device=device)
 
-    model = build_detector(args.backbone, num_classes=train_ds.num_classes)
+    model = build_detector(args.backbone, num_classes=train_ds.num_classes,
+                           remat=args.remat)
     if args.weights:
         load_weights(model, args.weights)
     else:
@@ -156,9 +173,10 @@ def main(argv=None):
     step_kwargs = dict(compat_height_only=args.compat_height_only_dim_loss,
                        bf16=args.bf16)
     if args.fused_prepare:
-        step = make_fused_train_step(loader=train_loader, **step_kwargs)
+        step = make_fused_train_step(loader=train_loader, mesh=mesh,
+                                     **step_kwargs)
     else:
-        step = make_train_step(**step_kwargs)
+        step = make_train_step(mesh=mesh, **step_kwargs)
 
     return fit(
         model, state, step, train_loader,
@@ -166,6 +184,7 @@ def main(argv=None):
         val_loader=val_loader, num_classes=train_ds.num_classes,
         checkpoint_dir=None if args.no_snapshots else args.snapshot_path,
         checkpoint_every=args.snapshot_every, log_path=args.log_path,
+        tensorboard_dir=args.tensorboard_dir, eval_mesh=mesh,
         async_checkpoints=not args.sync_snapshots)
 
 

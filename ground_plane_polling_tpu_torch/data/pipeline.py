@@ -11,6 +11,12 @@ Device (`prepare_batch`): cast the canvas to float32, augment each example
 at its true size, subtract the BGR means, and assign the anchor targets;
 the filler rows of a short last group get state -1 in all three targets.
 
+Data parallel (`mesh`): every rank builds the same groups, order and
+per-batch seeds from `seed`; `batch_size` is the global batch, and a rank
+loads only its rows of each group and keeps its rows of the augmentation
+drawn for the whole group, so the ranks' rows together are the batch one
+process would train on.
+
 The native C++ loader is ROADMAP A10b.
 """
 
@@ -98,13 +104,21 @@ class KittiLoader:
                  augment_config: AugmentConfig = AugmentConfig(),
                  seed: int = 0, shuffle: bool = True,
                  use_native_loader: bool = False,
-                 raw_batches: bool = False, device="cuda"):
+                 raw_batches: bool = False, device="cuda", mesh=None):
         if use_native_loader:
             raise NotImplementedError(
                 "use_native_loader: the native C++ image loader is ROADMAP "
                 "A10b; the port resizes with cv2, else PIL")
         from PIL import Image
 
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(
+                f"batch size {batch_size} does not divide over the "
+                f"{mesh.size} data-parallel ranks: each rank takes "
+                "batch_size / ranks rows of every batch")
+        # this rank's rows of every group (all of them on one process)
+        self._rows = (slice(0, batch_size) if mesh is None
+                      else mesh.rows(batch_size))
         self.ds = dataset
         self.batch_size = batch_size
         self.min_side = image_min_side
@@ -184,15 +198,25 @@ class KittiLoader:
 
     def _make_batch(self, group, seed: int, device: torch.device) -> dict:
         indices, n_valid = group
-        items = [self._load_padded(i) for i in indices]
+        rows = self._rows
+        items = [self._load_padded(i) for i in indices[rows]]
         images, ga, gm, ia, im_, _, sizes = map(np.stack, zip(*items))
         raw = {k: torch.from_numpy(v) for k, v in (
             ("images", images), ("annotations", ga), ("ann_mask", gm),
             ("ignores", ia), ("ignore_mask", im_),
-            ("valid", np.arange(len(indices)) < n_valid), ("sizes", sizes))}
+            ("valid", (np.arange(len(indices)) < n_valid)[rows]),
+            ("sizes", sizes))}
         if self.augment:
-            raw.update(draw_augmentation(torch.Generator().manual_seed(seed),
-                                         raw["sizes"], self.augment_config))
+            # drawn for the whole group (the draws do not depend on the
+            # sizes, and each row's transform only on its own): rows that
+            # another rank loads take the canvas size and are dropped
+            all_sizes = torch.tensor(self._bucket_shape[indices[0]],
+                                     dtype=torch.float32).repeat(
+                                         len(indices), 1)
+            all_sizes[rows] = raw["sizes"]
+            drawn = draw_augmentation(torch.Generator().manual_seed(seed),
+                                      all_sizes, self.augment_config)
+            raw.update({k: v[rows] for k, v in drawn.items()})
         if self.raw_batches:
             # the fused train step uploads them: pinned, the copy is
             # asynchronous

@@ -31,6 +31,7 @@ from .models.quantize import collect_scales, quantize_apply
 from .ops import anchors as anchor_ops
 from .ops.filtering import filter_detections_fused_batch
 from .ops.pose import solve_pose
+from .parallel.mesh import check_mesh
 
 __all__ = ["DetectionOutput", "make_detect_fn", "place_model",
            "require_device", "GPPDetector"]
@@ -78,18 +79,27 @@ def make_detect_fn(
     the device of its parameters, and inputs are moved there.
     `quant_scales`: per-conv-site int8 activation scales
     (models.quantize.collect_scales); every conv then runs int8.
+
+    `mesh` (parallel.data_parallel_mesh): every rank passes the same full
+    batch, runs its rows on its device and all-gathers the outputs, so
+    every rank returns the whole batch's outputs. The batch must divide by
+    the mesh's size.
     """
     if not fused_decode:
         raise NotImplementedError(
             "fused_decode=False: the unfused decode is not ported "
             "(ROADMAP A4 drops it)")
-    if mesh is not None or shard_spatial:
+    if shard_spatial:
         raise NotImplementedError(
-            "mesh / shard_spatial: multi-GPU inference is ROADMAP A15")
+            "shard_spatial: splitting one image's width over devices rests "
+            "on XLA's SPMD partitioner, which torch has no counterpart of; "
+            "not ported (ROADMAP A15)")
+    check_mesh(mesh)
     net = model if quant_scales is None else quantize_apply(model,
                                                             quant_scales)
     if device is None:
-        device = next(model.parameters()).device
+        device = (next(model.parameters()).device if mesh is None
+                  else mesh.device)
     device = torch.device(device)
     image_shape = (int(image_shape[0]), int(image_shape[1]))
     anchors = torch.as_tensor(anchor_ops.anchors_for_shape(image_shape),
@@ -108,6 +118,9 @@ def make_detect_fn(
 
     @torch.inference_mode()
     def detect(images, P_inv, planes) -> DetectionOutput:
+        if mesh is not None:  # this rank's rows, uploaded alone
+            rows = mesh.rows(len(images))
+            images, P_inv, planes = images[rows], P_inv[rows], planes[rows]
         images = torch.as_tensor(images, device=device)
         P_inv = torch.as_tensor(P_inv, dtype=torch.float32, device=device)
         planes = torch.as_tensor(planes, dtype=torch.float32, device=device)
@@ -133,9 +146,27 @@ def make_detect_fn(
                               det.dims)
             out = out._replace(locations=pose.locations, angles=pose.angles,
                                pose_dims=pose.dimensions)
-        return out
+        return out if mesh is None else _gather(out, mesh)
 
     return detect
+
+
+def _gather(out: DetectionOutput, mesh) -> DetectionOutput:
+    """Every rank's rows of each output, in rank order, on every rank: the
+    fields go as one float32 block (int32 labels and orientations, small
+    integers, are exact in float32) through one collective."""
+    fields = {k: v for k, v in out._asdict().items() if v is not None}
+    b = out.boxes.shape[0]
+    block = torch.cat([v.reshape(b, -1).float() for v in fields.values()],
+                      dim=1)
+    block = mesh.gather_rows(block)
+    gathered, at = {}, 0
+    for k, v in fields.items():
+        width = v[0].numel()
+        gathered[k] = block[:, at:at + width].reshape(
+            -1, *v.shape[1:]).to(v.dtype)
+        at += width
+    return out._replace(**gathered)
 
 
 def require_device(device) -> torch.device:

@@ -8,6 +8,11 @@ Layout details that must match the JAX package for imported weights:
     size and (1, 1) on an odd one, with -inf (`same_pad`);
   * in a bottleneck the stride sits on the 1x1 conv1 and on the 1x1
     projection, not on the 3x3.
+
+`remat=True` rematerializes each bottleneck block on the backward pass
+(torch.utils.checkpoint, non-reentrant, as JAX's nn.remat): the block's
+activations are recomputed instead of stored, for less training memory at
+the cost of about one more forward.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .common import FrozenBatchNorm
 
@@ -86,9 +92,11 @@ class BottleneckBlock(nn.Module):
 class ResNetBackbone(nn.Module):
     """ResNet v1; forward(NCHW images) returns (C3, C4, C5)."""
 
-    def __init__(self, stage_sizes: Sequence[int] = RESNET_STAGES["resnet50"]):
+    def __init__(self, stage_sizes: Sequence[int] = RESNET_STAGES["resnet50"],
+                 remat: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
+        self.remat = remat
         self.conv1 = _conv(3, 64, 7, 2, padding=3)
         self.bn1 = FrozenBatchNorm(64)
         cin = 64
@@ -108,6 +116,10 @@ class ResNetBackbone(nn.Module):
         outputs = []
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):
-                x = getattr(self, f"stage{stage + 1}_block{block + 1}")(x)
+                fn = getattr(self, f"stage{stage + 1}_block{block + 1}")
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(fn, x, use_reentrant=False)
+                else:
+                    x = fn(x)
             outputs.append(x)
         return outputs[1], outputs[2], outputs[3]

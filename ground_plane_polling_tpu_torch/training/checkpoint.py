@@ -8,6 +8,11 @@ the format the two packages share is the flat `.npz` of `export_params` /
 `import_params` (models/weights.py), into which the JAX package's
 convert_model (`ground_plane_polling_tpu/bin/convert_model.py`) turns an
 orbax checkpoint: `convert_model <dir> out.npz`.
+
+Files hold the unwrapped module's parameter names: a model wrapped in
+DistributedDataParallel is saved, exported and restored through its
+`.module`, so a data-parallel checkpoint restores in one process and the
+reverse.
 """
 
 from __future__ import annotations
@@ -25,11 +30,21 @@ from .train import TrainState
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint",
            "prune_checkpoints", "export_params", "import_params",
-           "checkpoint_params", "AsyncCheckpointSaver"]
+           "checkpoint_params", "checkpoint_path", "AsyncCheckpointSaver"]
 
 
-def _ckpt_path(ckpt_dir: str, step: int) -> str:
-    return os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}.pt")
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    """The file of the checkpoint at `step` under `ckpt_dir`."""
+    return os.path.join(os.path.abspath(ckpt_dir), f"step_{int(step):08d}.pt")
+
+
+def _unwrapped(model):
+    """The module inside a DistributedDataParallel wrapper (its state dict
+    would prefix every name with `module.`)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    return model.module if isinstance(model, DistributedDataParallel) \
+        else model
 
 
 def _steps(ckpt_dir: str):
@@ -56,7 +71,7 @@ def _snapshot(state: TrainState) -> dict:
         return _tree(lambda t: t.detach().clone(), value)
 
     return {"step": int(state.step), "lr": state.lr,
-            "model": copy(state.model.state_dict()),
+            "model": copy(_unwrapped(state.model).state_dict()),
             "optimizer": copy(state.optimizer.state_dict())}
 
 
@@ -72,7 +87,7 @@ def _write(path: str, snapshot: dict) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
-    path = _ckpt_path(ckpt_dir, int(state.step))
+    path = checkpoint_path(ckpt_dir, int(state.step))
     _write(path, _to_cpu(_snapshot(state)))
     return path
 
@@ -96,7 +111,7 @@ class AsyncCheckpointSaver:
 
     def save(self, ckpt_dir: str, state: TrainState) -> str:
         self.wait()
-        path = _ckpt_path(ckpt_dir, int(state.step))
+        path = checkpoint_path(ckpt_dir, int(state.step))
         snapshot = _snapshot(state)
 
         def _run():
@@ -152,9 +167,10 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
             "(ground_plane_polling_tpu/bin/convert_model.py) turns one into "
             f"an .npz: convert_model {path} out.npz, which import_params "
             "loads")
-    device = next(state.model.parameters()).device
+    model = _unwrapped(state.model)
+    device = next(model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(ckpt["model"], strict=True)
+    model.load_state_dict(ckpt["model"], strict=True)
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     state.lr = float(ckpt["lr"])
@@ -163,7 +179,7 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
 
 def export_params(path: str, model) -> None:
     """Write the model's weights as the JAX package's flat .npz."""
-    np.savez(path, **export_jax_params(model))
+    np.savez(path, **export_jax_params(_unwrapped(model)))
 
 
 def checkpoint_params(path: str) -> dict:

@@ -4,7 +4,14 @@ ground_plane_polling_tpu/training/loop.py).
 `fit` runs the epochs: steps over the loader, a NaN guard, the validation
 sweep (`evaluate_model`: per-bucket VOC AP, mean AP over the buckets that
 hold annotations, keypoint/h/w/l L1 errors), reduce-on-plateau on the
-epoch's mean loss, checkpoints and a JSONL log.
+epoch's mean loss, checkpoints, a JSONL log and, optionally, TensorBoard
+event files.
+
+Data parallel (a mesh from parallel.data_parallel_mesh): every rank runs
+`fit` and the sweep; the epoch's metrics are all-reduced once an epoch,
+so the NaN guard and the plateau schedule decide alike on every rank; the
+sweep runs mesh-sized groups, each rank its rows; only rank 0 writes the
+log, the events and the checkpoints.
 """
 
 from __future__ import annotations
@@ -21,10 +28,11 @@ import torch
 
 from ..inference import make_detect_fn
 from ..models.quantize import collect_scales_uint8
+from ..parallel.mesh import check_mesh
 from ..utils.eval import (bucket_annotations, bucket_detections,
                           evaluate_detections)
-from .checkpoint import (AsyncCheckpointSaver, prune_checkpoints,
-                         save_checkpoint)
+from .checkpoint import (AsyncCheckpointSaver, checkpoint_path,
+                         prune_checkpoints, save_checkpoint)
 from .schedule import ReduceLROnPlateau
 from .train import TrainState
 
@@ -48,15 +56,21 @@ def evaluate_model(model, loader, num_classes: int = 1,
     `int8_calib` > 0 calibrates int8 activation scales on the first that
     many eval images (absmax, or `int8_percentile` of |x|) and runs every
     conv int8 (models/quantize.py).
+
+    With `mesh`, groups are mesh-sized (`eval_batch` is ignored): each
+    rank runs its rows of a group and every rank gathers the whole group
+    and returns the same results (int8 on rank 0's scales).
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh: data-parallel evaluation is "
-                                  "ROADMAP A15")
+    check_mesh(mesh)
     if int8_calib:
         canvases = [item["image"] for item in
                     itertools.islice(loader.eval_inputs(), int8_calib)]
-        detect_kwargs["quant_scales"] = collect_scales_uint8(
-            model, canvases, percentile=int8_percentile)
+        scales = collect_scales_uint8(model, canvases,
+                                      percentile=int8_percentile)
+        if mesh is not None:
+            scales = mesh.broadcast(torch.as_tensor(
+                scales, device=mesh.device)).cpu().numpy()
+        detect_kwargs["quant_scales"] = scales
     detect_fns = {}
     # device_preprocess defaults to the image dtype: uint8 images get the
     # cast and mean subtraction on the device, float images are taken as
@@ -80,10 +94,10 @@ def evaluate_model(model, loader, num_classes: int = 1,
                 model, shape, num_classes=num_classes,
                 score_threshold=score_threshold,
                 max_detections=max_detections, device_preprocess=dp,
-                **detect_kwargs)
+                mesh=mesh, **detect_kwargs)
         return detect_fns[key]
 
-    group_size = max(int(eval_batch), 1)
+    group_size = mesh.size if mesh is not None else max(int(eval_batch), 1)
     detections, annotations = [], []
 
     def dispatch(shape, items):
@@ -167,20 +181,31 @@ def fit(model, state: TrainState, train_step: Callable, train_loader,
     pruned (keep_checkpoints <= 0 keeps all), before the next one and
     before fit returns. The validation sweep runs the model as it is, in
     float32 (also after bf16 training steps, which autocast).
+    tensorboard_dir mirrors each epoch's scalars into TensorBoard event
+    files (utils/tensorboard.py).
+
+    Data parallel: `eval_mesh` is the train step's mesh: the sweep runs
+    on it and the epoch's metrics are reduced over it; rank 0 alone writes
+    files, and every rank waits at a barrier after a save.
     """
-    if tensorboard_dir:
-        raise NotImplementedError("tensorboard_dir: TensorBoard logging is "
-                                  "ROADMAP A17")
-    if eval_mesh is not None:
-        raise NotImplementedError("eval_mesh: data-parallel evaluation is "
-                                  "ROADMAP A15")
+    mesh = check_mesh(eval_mesh)
+    lead = mesh is None or mesh.rank == 0  # the rank that writes files
     lr_schedule = lr_schedule or ReduceLROnPlateau()
-    saver = AsyncCheckpointSaver() if async_checkpoints else None
-    if log_path and os.path.dirname(log_path):
+    saver = AsyncCheckpointSaver() if async_checkpoints and lead else None
+    if log_path and lead and os.path.dirname(log_path):
         os.makedirs(os.path.dirname(log_path), exist_ok=True)
-    log_f = open(log_path, "a") if log_path else None
+    log_f = open(log_path, "a") if log_path and lead else None
+    tb_writer = None
+    if tensorboard_dir and lead:
+        from ..utils.tensorboard import TensorBoardWriter
+        tb_writer = TensorBoardWriter(tensorboard_dir)
 
     def log(record):
+        if tb_writer and "epoch" in record:
+            tb_writer.add_scalars(
+                {k: v for k, v in record.items() if k != "epoch"},
+                record["epoch"])
+            tb_writer.flush()
         record = _six_digits(record)
         if log_f:
             log_f.write(json.dumps(record) + "\n")
@@ -211,10 +236,14 @@ def fit(model, state: TrainState, train_step: Callable, train_loader,
                 raise RuntimeError(
                     "epoch ran zero steps (steps_per_epoch=0 or empty "
                     "loader) — nothing to train on")
-            # one read-back per epoch
+            # one read-back per epoch (and, data parallel, one reduction:
+            # every rank then decides alike below)
             keys = list(metrics[0])
             values = torch.stack([torch.stack([m[k] for k in keys])
-                                  for m in metrics]).float().cpu().numpy()
+                                  for m in metrics]).float()
+            if mesh is not None:
+                values = mesh.all_reduce(values) / mesh.size
+            values = values.cpu().numpy()
             per_step = {k: values[:, i].tolist() for i, k in enumerate(keys)}
             if nan_guard and not np.isfinite(per_step["loss"]).all():
                 bad = int(np.argmax(~np.isfinite(per_step["loss"])))
@@ -230,7 +259,8 @@ def fit(model, state: TrainState, train_step: Callable, train_loader,
 
             if val_loader is not None:
                 mean_ap, errors, _ = evaluate_model(model, val_loader,
-                                                    num_classes=num_classes)
+                                                    num_classes=num_classes,
+                                                    mesh=mesh)
                 record.update({"mAP": mean_ap, **errors})
 
             state, reduced = lr_schedule.update(state, losses["loss"])
@@ -239,7 +269,10 @@ def fit(model, state: TrainState, train_step: Callable, train_loader,
 
             if checkpoint_dir and ((epoch + 1) % max(checkpoint_every, 1) == 0
                                    or epoch == epochs - 1):
-                if saver is not None:
+                if not lead:
+                    record["checkpoint"] = checkpoint_path(checkpoint_dir,
+                                                           state.step)
+                elif saver is not None:
                     # join the last save and prune BEFORE the next one: a
                     # crash mid-write leaves the last complete checkpoint
                     saver.wait()
@@ -249,6 +282,8 @@ def fit(model, state: TrainState, train_step: Callable, train_loader,
                     record["checkpoint"] = save_checkpoint(checkpoint_dir,
                                                            state)
                     prune_checkpoints(checkpoint_dir, keep=keep_checkpoints)
+                if mesh is not None:
+                    mesh.barrier()
             log(record)
     finally:
         if saver is not None:
@@ -257,4 +292,8 @@ def fit(model, state: TrainState, train_step: Callable, train_loader,
                 prune_checkpoints(checkpoint_dir, keep=keep_checkpoints)
         if log_f:
             log_f.close()
+        if tb_writer:
+            tb_writer.close()
+    if mesh is not None:  # rank 0's last checkpoint is on disk for all
+        mesh.barrier()
     return state

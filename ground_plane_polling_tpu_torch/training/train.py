@@ -19,7 +19,13 @@ with float32 parameters (`--bf16` of the JAX CLI: bf16 compute, f32
 params); the losses are computed in float32. A frozen backbone is left out
 of the optimizer with requires_grad off, so a step leaves it bit-unchanged.
 
-Data parallelism (`make_sharded_train_step`, `mesh=`) is ROADMAP A15.
+Data parallel (`mesh=`, `make_sharded_train_step`; parallel/mesh.py): each
+rank steps on its rows of the batch with the model wrapped in
+DistributedDataParallel (buffers not broadcast: FrozenBN's never change),
+the loss normalizers counted over the whole batch (losses.global_terms).
+The clip runs after backward(), on the reduced gradients, and the
+returned metrics are the global loss terms. `state.model` stays the
+unwrapped module, so checkpoints keep its parameter names.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Optional
 import torch
 
 from ..data.pipeline import prepare_batch
+from ..parallel.mesh import check_mesh
 from . import losses
 
 __all__ = ["TrainState", "clip_per_tensor_norm", "make_optimizer",
@@ -87,33 +94,68 @@ def create_train_state(model, optimizer,
 
 
 def compute_losses(model, batch, compat_height_only: bool = False,
-                   bf16: bool = False):
+                   bf16: bool = False, mesh=None):
     """(total, dict of components) for a prepared batch: image (B, H, W, 3)
-    mean-subtracted, regression, regression_dim, labels (ops.targets)."""
+    mean-subtracted, regression, regression_dim, labels (ops.targets).
+
+    With a `mesh`, `batch` is this rank's rows: the components are the
+    global loss terms and `total` the rank's share to differentiate
+    (losses.global_terms)."""
     images = batch["image"].permute(0, 3, 1, 2)
     device_type = images.device.type
     with torch.autocast(device_type, torch.bfloat16, enabled=bf16):
         out = model(images)
     with torch.autocast(device_type, enabled=False):
-        l_box = losses.smooth_l1(batch["regression"],
-                                 out["regression"].float())
-        l_dim = losses.smooth_l1_dim(batch["regression_dim"],
-                                     out["regression_dim"].float(),
-                                     compat_height_only=compat_height_only)
-        l_cls = losses.focal(batch["labels"], out["classification"].float())
-    total = l_box + l_dim + l_cls
-    return total, {"loss": total, "regression": l_box,
-                   "regression_dim": l_dim, "classification": l_cls}
+        parts = {
+            "regression": losses.smooth_l1_parts(
+                batch["regression"], out["regression"].float()),
+            "regression_dim": losses.smooth_l1_dim_parts(
+                batch["regression_dim"], out["regression_dim"].float(),
+                compat_height_only=compat_height_only),
+            "classification": losses.focal_parts(
+                batch["labels"], out["classification"].float()),
+        }
+        if mesh is None:
+            terms = {k: losses.normalized(v) for k, v in parts.items()}
+            total = sum(terms.values())
+            return total, {"loss": total, **terms}
+        local, terms = losses.global_terms(parts, mesh)
+    return sum(local.values()), {"loss": sum(terms.values()), **terms}
+
+
+class _Replicas:
+    """The DistributedDataParallel wrapper of the state's model over a
+    mesh's group, made at the first step (its construction broadcasts rank
+    0's parameters) and again if the state's model changes."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._model = self._ddp = None
+
+    def __call__(self, model):
+        if self.mesh.group is None:  # one rank, no process group
+            return model
+        if model is not self._model:
+            from torch.nn.parallel import DistributedDataParallel
+
+            device = self.mesh.device
+            self._ddp = DistributedDataParallel(
+                model, device_ids=[device] if device.type == "cuda" else None,
+                process_group=self.mesh.group, broadcast_buffers=False)
+            self._model = model
+        return self._ddp
 
 
 def _step_body(state: TrainState, batch, compat_height_only: bool,
-               bf16: bool, clipnorm: float):
+               bf16: bool, clipnorm: float, replicas=None):
     """Loss, gradients, per-tensor clip and the Adam update, in place.
     Metrics are detached device tensors (read back by the caller when it
     chooses); the clipped gradients stay in each parameter's .grad."""
     state.optimizer.zero_grad(set_to_none=True)
-    total, metrics = compute_losses(state.model, batch, compat_height_only,
-                                    bf16)
+    model, mesh = ((state.model, None) if replicas is None
+                   else (replicas(state.model), replicas.mesh))
+    total, metrics = compute_losses(model, batch, compat_height_only, bf16,
+                                    mesh)
     total.backward()
     clip_per_tensor_norm([p.grad for group in state.optimizer.param_groups
                           for p in group["params"]], clipnorm)
@@ -125,20 +167,25 @@ def _step_body(state: TrainState, batch, compat_height_only: bool,
 def make_train_step(compat_height_only: bool = False, bf16: bool = False,
                     clipnorm: float = 1e-3, mesh=None):
     """train_step(state, batch) -> (state, metrics) for prepared batches
-    (the two-stage loader)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: data-parallel training is "
-                                  "ROADMAP A15")
+    (the two-stage loader); with a `mesh`, batches of this rank's rows."""
+    replicas = None if check_mesh(mesh) is None else _Replicas(mesh)
 
     def train_step(state: TrainState, batch):
-        return _step_body(state, batch, compat_height_only, bf16, clipnorm)
+        return _step_body(state, batch, compat_height_only, bf16, clipnorm,
+                          replicas)
 
     return train_step
 
 
-def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError("make_sharded_train_step: data-parallel "
-                              "training is ROADMAP A15")
+def make_sharded_train_step(mesh, compat_height_only: bool = False,
+                            bf16: bool = False, clipnorm: float = 1e-3):
+    """Data-parallel train step over `mesh` (parallel.data_parallel_mesh):
+    each rank passes its rows of the batch (KittiLoader(mesh=...) or
+    parallel.make_global_batch); the gradients are all-reduced in
+    backward()."""
+    if mesh is None:
+        raise ValueError("make_sharded_train_step needs a mesh")
+    return make_train_step(compat_height_only, bf16, clipnorm, mesh)
 
 
 def make_fused_train_step(num_classes: Optional[int] = None,
@@ -150,10 +197,9 @@ def make_fused_train_step(num_classes: Optional[int] = None,
     (upload, augmentation, mean subtraction, anchor targets) inside the
     step, on the device of the model's parameters, for the raw batches of
     KittiLoader(raw_batches=True). Pass either `loader` (num_classes and
-    augment come from it) or `num_classes` and `augment`."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: data-parallel training is "
-                                  "ROADMAP A15")
+    augment come from it) or `num_classes` and `augment`. With a `mesh`,
+    raw batches of this rank's rows (KittiLoader(mesh=...))."""
+    replicas = None if check_mesh(mesh) is None else _Replicas(mesh)
     if loader is not None:
         if not loader.raw_batches:
             raise ValueError(
@@ -173,6 +219,7 @@ def make_fused_train_step(num_classes: Optional[int] = None,
     def train_step(state: TrainState, raw):
         batch = prepare_batch(raw, num_classes, augment,
                               next(state.model.parameters()).device)
-        return _step_body(state, batch, compat_height_only, bf16, clipnorm)
+        return _step_body(state, batch, compat_height_only, bf16, clipnorm,
+                          replicas)
 
     return train_step

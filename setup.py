@@ -41,6 +41,8 @@ setup(
             "ground_plane_polling_tpu_torch.bin.convert_model:main",
             "gpp-torch-train="
             "ground_plane_polling_tpu_torch.bin.train:main",
+            "gpp-torch-logs-to-tb="
+            "ground_plane_polling_tpu_torch.bin.logs_to_tb:main",
         ],
     },
 )

@@ -18,6 +18,7 @@ from ground_plane_polling_tpu.inference import make_detect_fn as jax_detect_fn
 from ground_plane_polling_tpu.ops.polling import normalize_planes
 from ground_plane_polling_tpu_torch import inference
 from ground_plane_polling_tpu_torch.models import load_weights
+from ground_plane_polling_tpu_torch.parallel import data_parallel_mesh
 
 from .test_inference_pipeline import IMG, _build_scene_outputs, _planes
 from .test_polling import P_INV
@@ -130,7 +131,9 @@ def test_stub_scene_recovers_plane_keypoints_and_pose():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"fused_decode": False}, "A4"), ({"mesh": object()}, "A15"),
+    ({"fused_decode": False}, "A4"),
+    ({"mesh": data_parallel_mesh(device="cpu"), "shard_spatial": True},
+     "A15"),
     ({"shard_spatial": True}, "A15")])
 def test_detect_fn_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -318,17 +318,19 @@ def test_float_images_are_taken_as_preprocessed(split, port_runs):
                          port_runs["b4"])
 
 
-@pytest.mark.parametrize("flag,item", [("--data-parallel", "A15")])
-def test_unported_flags_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        evaluate(["m.npz", str(tmp_path), flag])
-
-
-@pytest.mark.parametrize("kwargs,item", [({"mesh": object()}, "A15")],
-                         ids=["mesh"])
-def test_evaluate_model_refuses_unported_options(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        evaluate_model(None, None, **kwargs)
+def test_data_parallel_in_one_process_runs_single_device(split, port_runs,
+                                                         capsys):
+    """--data-parallel without a multi-process launch: a note (as the JAX
+    CLI's) and the single-device sweep's results, --eval-batch 4's."""
+    weights, root = split
+    with _tf32_restored():
+        (mean_ap, errors), lines = _captured(
+            evaluate, [weights, root, "--device", "cpu", "--data-parallel"]
+            + SIDES)
+    assert "only one device is visible" in capsys.readouterr().err
+    assert lines == port_runs["b4"]["lines"]
+    _assert_same_metrics({"mAP": mean_ap, "errors": errors},
+                         port_runs["b4"])
 
 
 def test_cuda_is_refused_without_a_card(split):

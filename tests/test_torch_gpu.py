@@ -1,6 +1,7 @@
 """The PyTorch port on the card: its CUDA kernels against their plain
-PyTorch versions, fused against split heads, serve --once and one train
-step against the same run on the CPU. Every test here needs a CUDA device
+PyTorch versions, fused against split heads, serve --once, one train
+step against the same run on the CPU, the DDP step on a 1-rank NCCL group
+against the plain step, and --remat. Every test here needs a CUDA device
 (`gpu` marker) and skips without one. The file imports nothing of JAX, so
 it also runs where JAX is not installed:
 
@@ -336,6 +337,115 @@ def test_fused_train_step_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert state.step == 2
     assert torch.isfinite(metrics["loss"]).item()
+
+
+# --- data parallel and remat ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1-rank NCCL process group on the card (the machine shows one card
+    to a run, and NCCL refuses two ranks on one device), torn down after
+    the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from ground_plane_polling_tpu_torch.parallel import data_parallel_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield data_parallel_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _step_runs(device, batch, meshes, remat=False):
+    """One float32 step of the shrunk detector from the same weights per
+    mesh (None: the plain step): loss terms and post-clip gradients."""
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_optimizer, make_train_step)
+
+    runs = []
+    for mesh in meshes:
+        model = _shrunk_train_model(device)
+        model.backbone.remat = remat
+        state = create_train_state(model, make_optimizer(model))
+        state, m = make_train_step(mesh=mesh)(state, batch)
+        runs.append(({k: float(v) for k, v in m.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    return runs
+
+
+def _assert_same_step(got, want):
+    (terms, grads), (want_terms, want_grads) = got, want
+    for k, v in want_terms.items():
+        assert terms[k] == pytest.approx(v, rel=1e-4), k
+    for k, g in want_grads.items():
+        gap = float((grads[k] - g).abs().max())
+        assert gap <= 1e-3 * float(g.norm()), (k, gap)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_step_matches_plain_step(nccl_mesh, tf32_off):
+    """The DDP step over a 1-rank NCCL group (global normalizers through
+    one all-reduce, gradients reduced in backward) against the plain step:
+    test_train_step_on_the_card_matches_cpu's tolerances."""
+    from ground_plane_polling_tpu_torch.data.pipeline import prepare_batch
+
+    batch = prepare_batch(_raw_train_batch(), num_classes=1, augment=False,
+                          device=nccl_mesh.device)
+    ddp, plain = _step_runs(nccl_mesh.device, batch, (nccl_mesh, None))
+    _assert_same_step(ddp, plain)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_fused_step_makes_no_host_sync(nccl_mesh):
+    """The DDP-wrapped bf16 fused step never waits for the card: the
+    normalizers' all-reduce is enqueued on the stream."""
+    from ground_plane_polling_tpu_torch.data.augment import draw_augmentation
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    raw = _raw_train_batch()
+    raw.update(draw_augmentation(torch.Generator().manual_seed(0),
+                                 raw["sizes"]))
+    raw = {k: v.pin_memory() for k, v in raw.items()}
+    model = _shrunk_train_model(nccl_mesh.device).to(
+        memory_format=torch.channels_last)
+    state = create_train_state(model, make_optimizer(model))
+    step = make_fused_train_step(num_classes=1, augment=True, bf16=True,
+                                 mesh=nccl_mesh)
+    for _ in range(2):  # constants to the card; DDP's bucket rebuild
+        state, _ = step(state, raw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, raw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 3
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.gpu
+def test_remat_on_the_card(cuda, tf32_off):
+    """--remat recomputes the blocks in backward and changes no number:
+    float32 terms and gradients as without it."""
+    from ground_plane_polling_tpu_torch.data.pipeline import prepare_batch
+
+    batch = prepare_batch(_raw_train_batch(), num_classes=1, augment=False,
+                          device=cuda)
+    remat, = _step_runs(cuda, batch, (None,), remat=True)
+    plain, = _step_runs(cuda, batch, (None,))
+    _assert_same_step(remat, plain)
 
 
 # --- int8 convolution (csrc/int8_conv.cu) ---------------------------------

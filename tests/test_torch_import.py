@@ -60,7 +60,8 @@ def _run_blocked(body, tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["serve", "evaluate", "evaluate_3d",
-                                 "convert_model", "run_network", "train"])
+                                 "convert_model", "run_network", "train",
+                                 "logs_to_tb"])
 def test_cli_help_with_jax_blocked(cli, tmp_path):
     out = _run_blocked(
         "import runpy\n"
@@ -145,3 +146,25 @@ def test_int8_modules_run_with_jax_blocked(tmp_path):
         "print('sites', len(s), sorted(y))\n", tmp_path)
     assert out.strip() == ("sites 100 ['classification', 'regression', "
                            "'regression_dim']")
+
+
+def test_parallel_remat_and_tensorboard_run_with_jax_blocked(tmp_path):
+    """parallel/ (mesh, slices), remat and utils/tensorboard run without
+    JAX."""
+    out = _run_blocked(
+        "import os, torch\n"
+        "from ground_plane_polling_tpu_torch.parallel import (\n"
+        "    data_parallel_mesh, initialize, make_global_batch)\n"
+        "from ground_plane_polling_tpu_torch.models import build_detector\n"
+        "from ground_plane_polling_tpu_torch.utils.tensorboard import (\n"
+        "    TensorBoardWriter)\n"
+        "initialize(device='cpu')\n"
+        "mesh = data_parallel_mesh(device='cpu')\n"
+        "rows = make_global_batch(mesh, {'x': torch.arange(4)})['x']\n"
+        "w = TensorBoardWriter('tb')\n"
+        "w.add_scalars({'loss': 1.0}, 0)\n"
+        "w.close()\n"
+        "m = build_detector('resnet50', remat=True)\n"
+        "print(mesh.size, rows.tolist(), len(os.listdir('tb')),\n"
+        "      m.backbone.remat)\n", tmp_path)
+    assert out.strip() == "1 [0, 1, 2, 3] 1 True"

@@ -36,9 +36,9 @@ def shrunk_jax_model(num_classes=1):
                         feature_size=FEATURES)
 
 
-def shrunk_torch_model(num_classes=1):
-    return GPPRetinaNet(ResNetBackbone(SHRUNK), num_classes=num_classes,
-                        feature_size=FEATURES)
+def shrunk_torch_model(num_classes=1, remat=False):
+    return GPPRetinaNet(ResNetBackbone(SHRUNK, remat=remat),
+                        num_classes=num_classes, feature_size=FEATURES)
 
 
 def randomized_variables(model, seed=0, image_shape=(64, 64)):

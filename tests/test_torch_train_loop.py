@@ -370,8 +370,8 @@ def test_train_cli_one_epoch_then_resume(cli_split, tmp_path, monkeypatch):
     step count on. The CLI builds the shrunk detector here (the full
     ResNet-50 runs on the card in chip_smoke.py's phase 7d)."""
     monkeypatch.setattr(models, "build_detector",
-                        lambda backbone, num_classes=1:
-                        shrunk_torch_model(num_classes))
+                        lambda backbone, num_classes=1, remat=False:
+                        shrunk_torch_model(num_classes, remat))
     weights, root = cli_split
     snaps, log = str(tmp_path / "snaps"), str(tmp_path / "log.jsonl")
     common = ["--weights", weights, "--device", "cpu", "--snapshot-path",
@@ -399,8 +399,8 @@ def test_train_cli_one_epoch_then_resume(cli_split, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--data-parallel"], "A15"), (["--remat"], "A17"),
-    (["--tensorboard-dir", "tb"], "A17"), (["--backbone-h5", "x.h5"], "A10b"),
+    (["--backbone", "tiny"], "A17"), (["--backbone", "mobilenet128"], "A17"),
+    (["--backbone", "densenet121"], "A17"), (["--backbone-h5", "x.h5"], "A10b"),
     (["--imagenet-weights"], "A17"), (["--weights", "x.h5"], "A10b"),
     (["--backbone", "vgg16"], "A17")])
 def test_train_cli_unported_options_raise(tmp_path, flag, item):

@@ -258,7 +258,7 @@ def test_fused_step_refuses_mixed_configuration(tmp_path):
     with pytest.raises(ValueError, match="EITHER"):
         make_fused_train_step(num_classes=1, loader=KittiLoader(
             ds, raw_batches=True, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="data_parallel_mesh"):
         make_fused_train_step(num_classes=1, mesh=object())
 
 
