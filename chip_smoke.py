@@ -6,9 +6,9 @@ PyTorch versions and runs its main path end to end.
     python3 chip_smoke.py [--against ROOT]
 
 Phases (any failure exits non-zero before the last line):
-  0. environment: a CUDA card, its name and power limit; build the polling
-     and int8 kernels from csrc/ (one nvcc for each source, at once) and
-     print the build times and nvcc's register reports; count the
+  0. environment: a CUDA card, its name and power limit; build the polling,
+     int8 and depthwise kernels from csrc/ (one nvcc for each source, at
+     once) and print the build times and nvcc's register reports; count the
      warpgroup MMAs (IGMMA) in each instance of the int8 conv kernel's
      SASS, which must not be 0;
   1. the polling kernel against its twin on the card, at (B, D, P) =
@@ -78,7 +78,20 @@ Phases (any failure exits non-zero before the last line):
      to one process's, with the kernels' launches counted on each rank;
      (c) the bf16 step with and without --remat: peak memory, step time in
      turns, and equal float32 gradients.
-Phases 4-9 each drive their path with the launch counts set to 0 and fail
+ 10. the other backbone families (tiny, VGG, DenseNet, MobileNet): (a)
+     tiny, vgg16, densenet121 and mobilenet224_1.0 at full width (FPN 512,
+     seeded, bf16, 416x1344, 21,634 planes) at b1 and b4, one polling
+     launch a call and at least one detection; (b) every name of the
+     registry, float32 with TF32 off at 128x416, card against CPU (VGG and
+     DenseNet at a shrunk depth); (c) int8 on mobilenet224_1.0 at full
+     width: the depthwise kernel (csrc/int8_depthwise.cu) against its
+     plain version bit for bit at every depthwise shape, timed beside its
+     bound and cuDNN's bf16 grouped conv, 13 launches a call, the int8
+     call timed in turns with bf16 at b1 and b4; (d) run_network
+     --backbone mobilenet224_1.0 --int8 2 and --backbone densenet121 on
+     phase 3's frames and bin/train --backbone vgg16 on phase 7's split,
+     each a process of its own with a timeout.
+Phases 4-10 each drive their path with the launch counts set to 0 and fail
 if a kernel of the path was not launched.
 
 Prints the kernel table as one JSON line, then as the last line
@@ -269,14 +282,16 @@ def phase1_kernel(torch, polling_cuda, twin, polling_cases):
     return result
 
 
-def full_width_model(torch, seed, cls_std=0.05):
-    """ResNet-50 detector, FPN 512, seeded init, and the classification out
+def full_width_model(torch, seed, cls_std=0.05, backbone="resnet50",
+                     model=None):
+    """The detector of `backbone` (ResNet-50 by default; or `model`, built
+    by the caller), FPN 512, seeded init, and the classification out
     kernel redrawn from N(0, cls_std) with a zero bias so that random
     weights give detections above the 0.05 threshold."""
     from ground_plane_polling_tpu_torch.models import (build_detector,
                                                        init_detector)
 
-    model = init_detector(build_detector("resnet50"), seed)
+    model = init_detector(model or build_detector(backbone), seed)
     out = model.classification.cls_out
     w = np.random.RandomState(seed).normal(0.0, cls_std, out.weight.shape)
     with torch.no_grad():
@@ -2209,6 +2224,357 @@ def phase9_parallel(torch, tmp, smi, eval_b1):
     return result
 
 
+# phase 10: the other backbone families
+BACKBONES_FULL = ("tiny", "vgg16", "densenet121", "mobilenet224_1.0")
+# phase 10b: the depth each VGG and DenseNet name is cut to (the JAX
+# classes' `blocks` / `block_sizes`), so that the CPU's side stays short:
+# VGG's blocks 2 convs shorter (at least 1), DenseNet's blocks an eighth
+# as deep (rounded up); the other names run at their full depth
+SHRUNK_DEPTH = {"vgg16": (1, 1, 1, 1, 1), "vgg19": (1, 1, 2, 2, 2),
+                "densenet121": (1, 2, 3, 2), "densenet169": (1, 2, 4, 4),
+                "densenet201": (1, 2, 6, 4)}
+DW_SITES = 13  # depthwise conv sites of MobileNet, each a launch
+MOBILENET_SITES = 110  # conv sites of the MobileNet detector (split heads)
+CLI_TIMEOUT = 240  # seconds for each of phase 10d's CLI processes
+
+
+def phase10_model(name):
+    """The detector of registry name `name`, at SHRUNK_DEPTH where it has
+    one."""
+    from ground_plane_polling_tpu_torch.models import (GPPRetinaNet,
+                                                       backbone_registry)
+    from ground_plane_polling_tpu_torch.models.densenet import (
+        DenseNetBackbone)
+    from ground_plane_polling_tpu_torch.models.vgg import VGGBackbone
+
+    if name in SHRUNK_DEPTH:
+        family = VGGBackbone if name.startswith("vgg") else DenseNetBackbone
+        net = family(SHRUNK_DEPTH[name])
+    else:
+        net = backbone_registry()[name]()
+    return GPPRetinaNet(net, backbone_channels=net.channels)
+
+
+def depthwise_bound(x8, y):
+    """{"bytes": ms, "operations": ms} of one int8 depthwise 3x3 conv: its
+    int8 input, weights and scales read once and its output written once
+    at the memory rate; 9 multiply-adds an output at the int8 peak."""
+    c = x8.shape[1]
+    nbytes = x8.numel() + 9 * c + 4 * c + y.numel() * y.element_size()
+    return {"bytes": nbytes / PEAK_BYTES * 1e3,
+            "operations": 18 * y.numel() / PEAK_INT8_OPS * 1e3}
+
+
+def phase10c_depthwise(torch, int8_conv_cuda, int8_depthwise_cuda, sites):
+    """Each distinct depthwise shape of the b1 forward: the kernel's int32
+    accumulators and bf16 output against the plain version's (bit for
+    bit), its device time (device_ms) beside its bound, the plain
+    version's (CUDA events) and cuDNN's bf16 grouped conv. Returns rows."""
+    import torch.nn.functional as F
+
+    from ground_plane_polling_tpu_torch.ops import int8_conv as plain
+
+    rows = []
+    for key, e in sites.items():
+        x_shape, w_shape, stride, pad = key
+        x, s_x, conv = e["x"], e["s_x"], e["conv"]
+        with torch.inference_mode():
+            w8, s_w = e["weight"]
+            x8 = int8_conv_cuda.quantize(x, s_x)
+            acc = int8_depthwise_cuda.depthwise2d_accumulate(x8, w8, stride,
+                                                             pad)
+            y = int8_depthwise_cuda.depthwise2d(x8, w8, s_x, s_w, None,
+                                                stride, pad, x.dtype)
+            acc_ref = plain.conv2d_int8(x8, w8, stride, pad)
+            y_ref = plain.int8_conv2d(x8, w8, s_x, s_w, None, stride, pad,
+                                      x.dtype)
+            err = max(float((acc.double() - acc_ref.double()).abs().max()),
+                      float((y.double() - y_ref.double()).abs().max()))
+            assert err == 0.0 and torch.equal(y, y_ref), (key, err)
+            (top, bottom), (left, right) = pad
+            xp = F.pad(x, (left, right, top, bottom))
+            c = x_shape[1]
+            bound = depthwise_bound(x8, y)
+            row = {
+                "key": key, "n": e["n"], "err": err,
+                "ms": device_ms(torch, lambda: int8_depthwise_cuda.depthwise2d(
+                    x8, w8, s_x, s_w, None, stride, pad, x.dtype)),
+                "cudnn_ms": device_ms(torch, lambda: F.conv2d(
+                    xp, conv.weight, None, stride, groups=c)),
+                "plain_ms": cuda_ms(lambda: plain.int8_conv2d(
+                    x8, w8, s_x, s_w, None, stride, pad, x.dtype), 10, 3),
+                "bound_by": max(bound, key=bound.get),
+            }
+            row["bound_ms"] = bound[row["bound_by"]]
+        rows.append(row)
+        log(f"  x{tuple(x_shape)} s{stride} pad{pad} x{e['n']}: depthwise "
+            f"kernel {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} by "
+            f"{row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of it), "
+            f"cuDNN bf16 groups={c} {row['cudnn_ms']:.4f}, plain (events) "
+            f"{row['plain_ms']:.4f}; equal bit for bit")
+    return rows
+
+
+def run_clis(runs, work):
+    """Start each (name, argv of `--cli`) as a process of this script at
+    once, wait for all with CLI_TIMEOUT each and kill what is left; returns
+    {name: (the CLI's launch counts, its last output lines)}."""
+    logs = {name: open(os.path.join(work, f"{name}.log"), "w+")
+            for name, _ in runs}
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cli", *argv],
+        stdout=logs[name], stderr=subprocess.STDOUT) for name, argv in runs}
+    try:
+        deadline = time.monotonic() + CLI_TIMEOUT
+        for p in procs.values():
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for name, p in procs.items():
+        logs[name].seek(0)
+        lines = logs[name].read().splitlines()
+        logs[name].close()
+        assert p.returncode == 0, f"{name} exited {p.returncode}:\n" + \
+            "\n".join(lines[-40:])
+        counts = json.loads(lines[-1].split("CLI_COUNTS ", 1)[1])
+        out[name] = counts, lines[-3:-1]
+    return out
+
+
+def cli_worker(module, argv):
+    """Run bin/`module`.main(argv) of the port and print its kernels'
+    launch counts as the last line (phase 10d's processes)."""
+    import importlib
+
+    from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
+                                                        int8_depthwise_cuda,
+                                                        polling_cuda)
+
+    result = importlib.import_module(
+        f"ground_plane_polling_tpu_torch.bin.{module}").main(argv)
+    print("CLI_COUNTS " + json.dumps({
+        "polling": polling_cuda.LAUNCHES,
+        "conv": int8_conv_cuda.CONV_LAUNCHES,
+        "quantize": int8_conv_cuda.QUANTIZE_LAUNCHES,
+        "depthwise": int8_depthwise_cuda.DEPTHWISE_LAUNCHES,
+        "step": getattr(result, "step", None)}), flush=True)
+    return 0
+
+
+def phase10_backbones(torch, polling_cuda, int8_conv_cuda,
+                      int8_depthwise_cuda, tmp, cli):
+    """The other backbone families: (a) one variant of each at full width
+    in bf16; (b) every registry name, card against CPU in float32; (c)
+    int8 on mobilenet224_1.0 with the depthwise kernel; (d) the CLIs."""
+    import copy
+
+    from ground_plane_polling_tpu_torch.data.kitti import BGR_MEAN
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+    from ground_plane_polling_tpu_torch.models import (backbone_registry,
+                                                       export_jax_params)
+    from ground_plane_polling_tpu_torch.models import quantize as tq
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 10)
+    planes = synthetic_planes(rng, N_PLANES)
+    P_inv = np.linalg.pinv(P2).astype(np.float32)
+
+    def detect_args(b):
+        return (torch.from_numpy(rng.randint(0, 256, (b, *CANVAS, 3)).astype(
+                    np.uint8)).to(dev),
+                torch.from_numpy(np.tile(P_inv[None], (b, 1, 1))).to(dev),
+                torch.from_numpy(np.tile(planes[None], (b, 1, 1))).to(dev))
+
+    args = {b: detect_args(b) for b in (1, 4)}
+    log(f"phase 10a: {', '.join(BACKBONES_FULL)} at full width: FPN 512, "
+        f"seeded, bf16, {CANVAS[0]}x{CANVAS[1]}, {N_PLANES} planes, b1 and "
+        "b4 (host clock over 10 synchronized calls after 3)")
+    result = {"10a": {}}
+    weights = {}
+    for name in BACKBONES_FULL:
+        t0 = time.perf_counter()
+        model = full_width_model(torch, SEED, backbone=name)
+        if name in ("densenet121", "mobilenet224_1.0"):  # for phase 10d
+            weights[name] = os.path.join(tmp, f"{name}.npz")
+            np.savez(weights[name], **export_jax_params(model))
+        model = place_model(model, dev, torch.bfloat16)
+        row = {}
+        for b in (1, 4):
+            detect = make_detect_fn(model, CANVAS, with_pose=True,
+                                    device_preprocess=True, device=dev)
+            polling_cuda.LAUNCHES = 0
+            sec, out = timed_detect(torch, detect, args[b])
+            assert polling_cuda.LAUNCHES == 13, polling_cuda.LAUNCHES
+            scores = out.scores.float().cpu().numpy()
+            assert scores.shape == (b, 100) and np.isfinite(scores).all()
+            n_valid = (scores > 0).sum(axis=1)
+            assert (n_valid >= 1).all(), (name, b, n_valid)
+            row[f"b{b}_ms"] = sec * 1e3
+            row[f"b{b}_img_s"] = b / sec
+            log(f"  {name} b{b}: {sec * 1e3:.3f} ms per call, "
+                f"{b / sec:.2f} img/s, 1 polling launch per call, valid "
+                f"detections per image {n_valid.tolist()}")
+        result["10a"][name] = row
+        log(f"  {name}: {time.perf_counter() - t0:.2f} s wall (seeded init "
+            "on the CPU, warm-up and timing)")
+        del model, detect
+
+    log("phase 10b: every registry name, float32 with TF32 off, 128x416: "
+        "card against CPU (VGG and DenseNet at the depths of SHRUNK_DEPTH)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(rng.randint(0, 256, (1, 128, 416, 3)).astype(
+        np.float32) - BGR_MEAN).permute(0, 3, 1, 2)
+    worst = 0.0
+    for name in sorted(backbone_registry()):
+        cpu_net = place_model(full_width_model(
+            torch, SEED, model=phase10_model(name)), "cpu")
+        card_net = place_model(copy.deepcopy(cpu_net), dev)
+        with torch.inference_mode():
+            want = cpu_net(x)
+            got = {k: v.cpu() for k, v in card_net(x.to(dev)).items()}
+        errs = []
+        for k, ref in want.items():
+            atol = 1e-3 * float(ref.abs().max())
+            np.testing.assert_allclose(got[k].numpy(), ref.numpy(),
+                                       rtol=1e-3, atol=atol,
+                                       err_msg=f"{name} f32 head {k}")
+            errs.append(float((got[k] - ref).abs().max()) / max(atol, 1e-30))
+        worst = max(worst, max(errs))
+        log(f"  {name}: max |card - cpu| / (1e-3 max|cpu|) over the heads "
+            f"{max(errs):.3f} (rtol 1e-3, atol 1e-3 max|cpu|)")
+        del cpu_net, card_net
+    result["10b_worst"] = worst
+
+    name = "mobilenet224_1.0"
+    model = place_model(full_width_model(torch, SEED, backbone=name), dev,
+                        torch.bfloat16)
+    canvases = [torch.from_numpy(rng.randint(0, 256, (1, *CANVAS, 3)).astype(
+        np.uint8)).to(dev) for _ in range(INT8_CALIB)]
+    scales = tq.collect_scales_uint8(model, canvases)
+    assert scales.shape == (MOBILENET_SITES,) and (scales > 0).all()
+    log(f"phase 10c: int8, {name} bf16 at {CANVAS[0]}x{CANVAS[1]}, "
+        f"calibrated (absmax) on {INT8_CALIB} canvases, {len(scales)} "
+        f"sites, {DW_SITES} depthwise: the depthwise kernel against its "
+        "plain version at every depthwise shape at b1 (device times as in "
+        "phase 8a)")
+    mean = torch.as_tensor(BGR_MEAN, device=dev)
+    x1 = (args[1][0].float() - mean).permute(0, 3, 1, 2)
+    sites = int8_site_inputs(torch, tq, model, scales, x1,
+                             keep=lambda k: k[1][1] == 1)
+    assert sum(e["n"] for e in sites.values()) == DW_SITES
+    rows = phase10c_depthwise(torch, int8_conv_cuda, int8_depthwise_cuda,
+                              sites)
+    per_call = {k: sum(r[k] * r["n"] for r in rows) for k in (
+        "ms", "plain_ms", "bound_ms", "cudnn_ms")}
+    per_call["err"] = max(r["err"] for r in rows)
+    per_call["bound_by"] = "bytes" if all(
+        r["bound_by"] == "bytes" for r in rows) else "operations"
+    log(f"  per b1 forward ({len(rows)} distinct shapes, {DW_SITES} sites), "
+        f"device ms: depthwise {per_call['ms']:.4f} (bound "
+        f"{per_call['bound_ms']:.4f} by {per_call['bound_by']}, "
+        f"{per_call['bound_ms'] / per_call['ms']:.1%} of it), cuDNN bf16 "
+        f"{per_call['cudnn_ms']:.4f}, plain (events) "
+        f"{per_call['plain_ms']:.4f}")
+
+    log("  the int8 detect call, b1 and b4, timed in turns bf16, int8, "
+        "int8, bf16 (host clock over 10 synchronized calls after 3)")
+    launches = {"quantize": 0, "conv": 0, "depthwise": 0, "calls": 0}
+    for b in (1, 4):
+        fns = {kind: make_detect_fn(model, CANVAS, with_pose=True,
+                                    device_preprocess=True, device=dev,
+                                    quant_scales=q)
+               for kind, q in (("bf16", None), ("int8", scales))}
+        outs = {}
+        for kind in ("bf16", "int8", "int8", "bf16"):
+            int8_conv_cuda.QUANTIZE_LAUNCHES = 0
+            int8_conv_cuda.CONV_LAUNCHES = 0
+            int8_depthwise_cuda.DEPTHWISE_LAUNCHES = 0
+            polling_cuda.LAUNCHES = 0
+            sec, outs[kind] = timed_detect(torch, fns[kind], args[b])
+            calls = 13
+            int8 = kind == "int8"
+            counts = {"quantize": int8_conv_cuda.QUANTIZE_LAUNCHES,
+                      "conv": int8_conv_cuda.CONV_LAUNCHES,
+                      "depthwise": int8_depthwise_cuda.DEPTHWISE_LAUNCHES}
+            assert polling_cuda.LAUNCHES == calls, polling_cuda.LAUNCHES
+            assert counts == {
+                "quantize": MOBILENET_SITES * calls * int8,
+                "conv": (MOBILENET_SITES - DW_SITES) * calls * int8,
+                "depthwise": DW_SITES * calls * int8}, counts
+            if int8:
+                for k, v in counts.items():
+                    launches[k] += v
+                launches["calls"] += calls
+            result.setdefault(f"10c_{kind}_b{b}_ms", []).append(sec * 1e3)
+            log(f"  {kind} b{b}: {sec * 1e3:.3f} ms per call, "
+                f"{b / sec:.2f} img/s; per call {counts['depthwise'] // calls}"
+                f" depthwise, {counts['conv'] // calls} conv and "
+                f"{counts['quantize'] // calls} quantize launches, 1 polling")
+        sf, sq = (outs[k].scores.float().cpu().numpy() for k in ("bf16",
+                                                                 "int8"))
+        assert np.isfinite(sq).all() and ((sq > 0).sum(1) >= 1).all()
+        log(f"  b{b} int8 against bf16 detections (this model's int8 error, "
+            f"logged): counts {(sq > 0).sum(1).tolist()} against "
+            f"{(sf > 0).sum(1).tolist()}, max |score gap| "
+            f"{float(np.abs(sq - sf).max()):.3e}")
+    del model
+
+    log("phase 10d: run_network --backbone mobilenet224_1.0 --int8 2 and "
+        "--backbone densenet121 on phase 3's frames, bin/train --backbone "
+        "vgg16 (1 epoch of 3 steps, bf16) on phase 7's split: one process "
+        f"each, at once, {CLI_TIMEOUT} s allowed")
+    t0 = time.perf_counter()
+    frames = [cli["images"], cli["calibs"], cli["planes"]]
+    outs = {k: os.path.join(tmp, f"cli_{k}") for k in ("mobilenet",
+                                                       "densenet")}
+    runs = [("mobilenet", ["run_network", weights["mobilenet224_1.0"],
+                           *frames, outs["mobilenet"], "--kitti",
+                           "--backbone", "mobilenet224_1.0", "--int8", "2",
+                           "--device", "cuda"]),
+            ("densenet", ["run_network", weights["densenet121"], *frames,
+                          outs["densenet"], "--kitti", "--backbone",
+                          "densenet121", "--device", "cuda"]),
+            ("train_vgg16", ["train", "--backbone", "vgg16", "--batch-size",
+                             str(TRAIN_BATCH), "--epochs", "1", "--steps",
+                             "3", "--bf16", "--random-transform",
+                             "--no-evaluation", "--no-snapshots",
+                             "--log-path", os.path.join(tmp, "vgg16.jsonl"),
+                             "--image-min-side", str(TRAIN_SIDES[0]),
+                             "--image-max-side", str(TRAIN_SIDES[1]),
+                             "--device", "cuda", "kitti",
+                             os.path.join(tmp, "kitti_train")])]
+    ran = run_clis(runs, tmp)
+    for key, name in (("mobilenet", "mobilenet224_1.0"),
+                      ("densenet", "densenet121")):
+        stem = os.path.basename(weights[name]).rsplit(".", 1)[0]
+        kdir = os.path.join(outs[key], stem, "outputs", "kitti")
+        names = sorted(os.listdir(kdir))
+        assert names == [f"{i:06d}.txt" for i in range(4)], (key, names)
+    m = ran["mobilenet"][0]
+    assert m["polling"] > 0 and m["depthwise"] > 0, m
+    assert m["depthwise"] % DW_SITES == 0, m
+    assert m["conv"] == m["depthwise"] // DW_SITES * (
+        MOBILENET_SITES - DW_SITES), m
+    assert ran["densenet"][0]["polling"] > 0
+    assert ran["densenet"][0]["depthwise"] == 0
+    assert ran["train_vgg16"][0]["step"] == 3, ran["train_vgg16"]
+    for key, (counts, tail) in ran.items():
+        log(f"  {key}: launches {counts}; {' | '.join(tail)}")
+    log(f"  phase 10d wall: {time.perf_counter() - t0:.2f} s")
+    result["10c"] = {"per_call": per_call, "rows": rows,
+                     "launches": launches}
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 10 wall: {result['wall_s']:.2f} s")
+    return result
+
+
 def load_int8_tree(root, alias):
     """kernels.int8_conv_cuda of the package in checkout `root`, imported
     under the top-level name `alias` (it builds into that checkout)."""
@@ -2266,16 +2632,23 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--work", default=None, help=argparse.SUPPRESS)
     p.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else argv
+    # phase 10d's CLI processes: --cli MODULE ARGS... (the script starts
+    # them itself)
+    cli_args = argv[1:] if argv[:1] == ["--cli"] else None
+    args = p.parse_args([] if cli_args is not None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if cli_args is not None:
+        return cli_worker(cli_args[0], cli_args[1:])
     if args.rank is not None:
         return rank_worker(args.rank, args.port, args.work, args.dp_cards,
                            args.backend)
     from concurrent.futures import ThreadPoolExecutor
 
     from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
+                                                        int8_depthwise_cuda,
                                                         polling_cases,
                                                         polling_cuda)
     from ground_plane_polling_tpu_torch.ops import polling as twin
@@ -2292,7 +2665,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         return module.build(), time.perf_counter() - t0
 
-    modules = [polling_cuda, int8_conv_cuda]
+    modules = [polling_cuda, int8_conv_cuda, int8_depthwise_cuda]
     other = None
     if args.against:
         other = load_int8_tree(args.against, "gpp_against")
@@ -2323,9 +2696,12 @@ def main(argv=None):
         int8 = phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli,
                            other)
         parallel = phase9_parallel(torch, tmp, smi, evaluated["b1"])
+        backbones = phase10_backbones(torch, polling_cuda, int8_conv_cuda,
+                                      int8_depthwise_cuda, tmp, cli)
     log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
         "phase 0's device query")
     pc = int8["per_call"]
+    dw = backbones["10c"]
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2382,6 +2758,23 @@ def main(argv=None):
         "split_sites": pc["split_sites"],
         "sass_igmma": sum(igmma.values()),
         "against": pc.get("turns"),
+    }, {
+        "name": "int8_depthwise",
+        "route": "cuda",
+        "source": "ground_plane_polling_tpu_torch/csrc/int8_depthwise.cu",
+        # the grouped (feature_group_count = C) case of the conv rewrite
+        "replaces": "ground_plane_polling_tpu/models/quantize.py:236",
+        # phase 10c's int8 detect calls of mobilenet224_1.0
+        "launches": dw["launches"]["depthwise"],
+        "max_abs_err": dw["per_call"]["err"],
+        # per b1 int8 forward: the sum over its 13 depthwise sites
+        "ms": dw["per_call"]["ms"],
+        "plain_ms": dw["per_call"]["plain_ms"],
+        "bound_ms": dw["per_call"]["bound_ms"],
+        "bound_by": dw["per_call"]["bound_by"],
+        # cuDNN's bf16 grouped conv (groups = C), same shapes
+        "library_ms": dw["per_call"]["cudnn_ms"],
+        "launches_per_call": DW_SITES,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ torch and never JAX.
 
 Subpackages
   ops/      anchors, box/dim decode, IoU, filtering + NMS, polling twin, pose
-  models/   ResNet backbone, FPN, heads and the detector (NCHW nn.Modules),
+  models/   backbones (ResNet, VGG, DenseNet, MobileNet, tiny), FPN, heads
+            and the detector (NCHW nn.Modules),
             and the weight bridge from the JAX package's .npz export
   kernels/  hand-written CUDA kernels and their wrappers (csrc/ holds sources)
   data/     KITTI calibration, images, the plane database, host frame prep

@@ -86,11 +86,8 @@ def parse_args(argv):
     p.add_argument("--backbone-h5", default=None,
                    help="not ported yet (ROADMAP A10b)")
     p.add_argument("--imagenet-weights", action="store_true",
-                   help="not ported (ROADMAP A17; no download)")
+                   help="not available: the port downloads nothing")
     return p.parse_args(argv)
-
-
-_UNPORTED = (("backbone_h5", "A10b"), ("imagenet_weights", "A17"))
 
 
 def main(argv=None):
@@ -98,11 +95,14 @@ def main(argv=None):
     if args.dataset_type != "kitti":
         raise SystemExit("only the kitti dataset is supported (like the "
                          "reference's implemented subset)")
-    for flag, item in _UNPORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP {item})")
+    if args.backbone_h5:
+        raise NotImplementedError(
+            "--backbone-h5 is not ported yet (ROADMAP A10b)")
+    if args.imagenet_weights:
+        raise NotImplementedError(
+            "--imagenet-weights: the port does not download ImageNet "
+            "weights (the JAX package fetches them from GitHub); start "
+            "from --weights, an .npz export")
     if args.weights and args.weights.endswith((".h5", ".hdf5")):
         raise NotImplementedError(
             ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
@@ -113,7 +113,7 @@ def main(argv=None):
     from ..data.kitti import KittiDataset
     from ..data.pipeline import KittiLoader
     from ..inference import require_device
-    from ..models import RESNET_STAGES, build_detector, init_detector
+    from ..models import build_detector, init_detector
     from ..models import load_weights
     from ..parallel import data_parallel_mesh, initialize, is_multi_host
     from ..training.checkpoint import latest_checkpoint, restore_checkpoint
@@ -121,10 +121,6 @@ def main(argv=None):
     from ..training.train import (create_train_state, make_fused_train_step,
                                   make_optimizer, make_train_step)
 
-    if args.backbone not in RESNET_STAGES:
-        raise NotImplementedError(
-            f"backbone {args.backbone!r}: the port has "
-            f"{sorted(RESNET_STAGES)}; other backbones are ROADMAP A17")
     device = require_device(args.device)
     initialize(device=device)  # a no-op without a multi-process launch
     mesh = None

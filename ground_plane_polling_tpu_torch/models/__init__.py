@@ -1,16 +1,30 @@
-"""Detector factory (port of ground_plane_polling_tpu/models/__init__.py for
-the resnet family)."""
+"""Backbone registry and detector factory (port of
+ground_plane_polling_tpu/models/__init__.py)."""
 
 from __future__ import annotations
 
+import functools
+
+from . import densenet, mobilenet, tiny, vgg
 from .resnet import RESNET_STAGES, ResNetBackbone
 from .retinanet import GPPRetinaNet
 from .weights import (export_jax_params, fuse_detector_params, init_detector,
                       load_jax_params, load_weights)
 
-__all__ = ["build_detector", "fuse_detector_params", "GPPRetinaNet",
-           "RESNET_STAGES", "export_jax_params", "init_detector",
-           "load_jax_params", "load_weights"]
+__all__ = ["backbone_registry", "build_detector", "fuse_detector_params",
+           "GPPRetinaNet", "RESNET_STAGES", "export_jax_params",
+           "init_detector", "load_jax_params", "load_weights"]
+
+
+def backbone_registry() -> dict:
+    """Backbone name -> constructor of an (images -> (C3, C4, C5))
+    module whose `channels` are the widths of C3, C4 and C5: the JAX
+    package's 13 names."""
+    reg = {name: functools.partial(ResNetBackbone, stages)
+           for name, stages in RESNET_STAGES.items()}
+    for module in (vgg, densenet, mobilenet, tiny):
+        reg.update(module.REGISTRY)
+    return reg
 
 
 def build_detector(backbone: str = "resnet50", num_classes: int = 1,
@@ -22,12 +36,16 @@ def build_detector(backbone: str = "resnet50", num_classes: int = 1,
     (inference only; `load_weights` converts split weights). `remat`
     rematerializes the backbone's blocks on the backward pass (ResNet
     family only)."""
-    if remat and backbone not in RESNET_STAGES:
-        raise ValueError("remat is implemented for the resnet family")
-    if backbone not in RESNET_STAGES:
+    reg = backbone_registry()
+    if backbone not in reg:
         raise ValueError(
-            f"unsupported backbone {backbone!r}; this port supports "
-            f"{sorted(RESNET_STAGES)} (other backbones: ROADMAP A17)")
-    return GPPRetinaNet(ResNetBackbone(RESNET_STAGES[backbone], remat=remat),
+            f"unknown backbone {backbone!r}; available: {sorted(reg)}")
+    if remat:
+        if backbone not in RESNET_STAGES:
+            raise ValueError("remat is implemented for the resnet family")
+        net = reg[backbone](remat=True)
+    else:
+        net = reg[backbone]()
+    return GPPRetinaNet(net, backbone_channels=net.channels,
                         num_classes=num_classes, feature_size=feature_size,
                         fuse_cls_dim=fuse_cls_dim)

@@ -18,7 +18,7 @@ from torch import nn
 
 from .resnet import same_pad
 
-__all__ = ["FPN", "SameConv2d", "upsample_to"]
+__all__ = ["FPN", "SameConv2d", "same_conv", "upsample_to"]
 
 
 def upsample_to(x: torch.Tensor, target_hw) -> torch.Tensor:
@@ -37,6 +37,18 @@ class SameConv2d(nn.Conv2d):
     def forward(self, x):
         return super().forward(same_pad(x, self.kernel_size[0],
                                         self.stride[0]))
+
+
+def same_conv(cin: int, cout: int, kernel: int, stride: int = 1,
+              groups: int = 1, bias: bool = True) -> nn.Conv2d:
+    """A conv with Flax SAME padding: torch's symmetric `padding` where
+    SAME is symmetric for every size (stride 1, odd kernel), else
+    SameConv2d."""
+    if stride == 1 and kernel % 2 == 1:
+        return nn.Conv2d(cin, cout, kernel, padding=kernel // 2,
+                         groups=groups, bias=bias)
+    return SameConv2d(cin, cout, kernel, stride=stride, groups=groups,
+                      bias=bias)
 
 
 class FPN(nn.Module):

@@ -5,9 +5,10 @@ Every conv of the forward can run as
 
     quantize(x; s_x)  ->  int8 conv  ->  y_int32 * (s_x * s_w[c])  (+ bias)
 
-on the CUDA kernels of kernels/int8_conv_cuda.py (their plain versions on
-the CPU), with a per-tensor activation scale `s_x` per conv SITE and
-symmetric per-output-channel weight scales `s_w`. Everything else (frozen
+on the CUDA kernels of kernels/int8_conv_cuda.py, a depthwise conv
+(MobileNet's, groups = channels) on kernels/int8_depthwise_cuda.py
+(their plain versions on the CPU), with a per-tensor activation scale
+`s_x` per conv SITE and symmetric per-output-channel weight scales `s_w`. Everything else (frozen
 BN, ReLU, residual adds, the detection pipeline) runs as before in the
 model's dtype.
 
@@ -38,7 +39,7 @@ import torch
 from torch import nn
 
 from ..data.kitti import BGR_MEAN
-from ..kernels import int8_conv_cuda
+from ..kernels import int8_conv_cuda, int8_depthwise_cuda
 from ..ops.int8_conv import SCALE_EPS, quantize_weight
 from .fpn import SameConv2d
 from .resnet import same_padding
@@ -48,11 +49,16 @@ __all__ = ["count_convs", "make_calibration_fn", "collect_scales",
            "QuantizedModel"]
 
 def conv_padding(conv: nn.Conv2d, x: torch.Tensor):
-    """((top, bottom), (left, right)) zero padding of `conv` on input `x`."""
-    if (conv.groups != 1 or tuple(conv.dilation) != (1, 1)
+    """((top, bottom), (left, right)) zero padding of `conv` on input `x`.
+    A site is a plain conv or a depthwise one (groups = in = out
+    channels)."""
+    depthwise = conv.groups == conv.in_channels == conv.out_channels
+    if ((conv.groups != 1 and not depthwise)
+            or tuple(conv.dilation) != (1, 1)
             or conv.padding_mode != "zeros" or isinstance(conv.padding, str)
             or conv.stride[0] != conv.stride[1]):
-        raise ValueError(f"int8 conv sites take plain convs: {conv}")
+        raise ValueError(f"int8 conv sites take plain or depthwise convs: "
+                         f"{conv}")
     if isinstance(conv, SameConv2d):
         return same_padding(x.shape[2], x.shape[3], conv.kernel_size[0],
                             conv.stride[0])
@@ -215,9 +221,10 @@ class QuantizedModel:
         s_x = float(self.scales[site])
         w8, s_w = self.int8_weight(conv)
         x8 = int8_conv_cuda.quantize(x, s_x)
-        return int8_conv_cuda.conv2d(x8, w8, s_x, s_w, conv.bias,
-                                     conv.stride[0], conv_padding(conv, x),
-                                     conv.weight.dtype)
+        run = (int8_depthwise_cuda.depthwise2d if conv.groups != 1
+               else int8_conv_cuda.conv2d)
+        return run(x8, w8, s_x, s_w, conv.bias, conv.stride[0],
+                   conv_padding(conv, x), conv.weight.dtype)
 
     def __call__(self, images):
         with _intercept(self.model, self._conv) as counter:

@@ -99,6 +99,7 @@ class ResNetBackbone(nn.Module):
         self.remat = remat
         self.conv1 = _conv(3, 64, 7, 2, padding=3)
         self.bn1 = FrozenBatchNorm(64)
+        self.channels = (512, 1024, 2048)  # C3, C4, C5
         cin = 64
         for stage, (n_blocks, w) in enumerate(
                 zip(self.stage_sizes, (64, 128, 256, 512))):

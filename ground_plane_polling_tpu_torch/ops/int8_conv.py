@@ -13,8 +13,9 @@ scales `s_w` (`quantize_weight`). `int8_conv2d` is the last three steps,
 the function of the CUDA conv kernel (kernels/int8_conv_cuda.py).
 
 These are the plain versions: the CPU path and the tests use them, and on
-the card they only serve as the kernels' reference. Tensors are NCHW (and
-OIHW) in any memory format. Each step rounds where the JAX package's does:
+the card they only serve as the kernels' reference (of the conv kernel,
+and of the depthwise kernel for a (C, 1, 3, 3) weight). Tensors are NCHW
+(and OIHW) in any memory format. Each step rounds where the JAX package's does:
 true float32 division (torch turns a division by a Python scalar on CUDA
 into a multiplication by its reciprocal, so the divisor is a tensor on the
 input's device), round half to even, float32 products.
@@ -55,13 +56,17 @@ def quantize_weight(w: torch.Tensor):
 def conv2d_int8(x8: torch.Tensor, w8: torch.Tensor, stride: int,
                 padding) -> torch.Tensor:
     """int32 accumulators of the int8 conv; `padding` is
-    ((top, bottom), (left, right)) of int8 zeros. Computed as a float64
-    conv, which is exact: |acc| <= K * 127^2 < 2^53 for any K of the
-    detector (K = kh kw Cin <= 4,608 gives 7.4e7; float32 would not be
+    ((top, bottom), (left, right)) of int8 zeros. A weight of Cin / g input
+    channels makes it a conv of g groups (a (C, 1, kh, kw) weight on C
+    channels: depthwise, JAX's feature_group_count = C). Computed as a
+    float64 conv, which is exact: |acc| <= K * 127^2 < 2^53 for any K of
+    the detector (K = kh kw Cin <= 4,608 gives 7.4e7; float32 would not be
     exact above 2^24)."""
     (top, bottom), (left, right) = padding
     x = F.pad(x8.double(), (left, right, top, bottom))
-    return F.conv2d(x, w8.double(), stride=stride).to(torch.int32)
+    groups = x8.shape[1] // w8.shape[1]
+    return F.conv2d(x, w8.double(), stride=stride,
+                    groups=groups).to(torch.int32)
 
 
 def dequantize(acc: torch.Tensor, s_x: float, s_w: torch.Tensor,

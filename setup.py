@@ -43,6 +43,8 @@ setup(
             "ground_plane_polling_tpu_torch.bin.train:main",
             "gpp-torch-logs-to-tb="
             "ground_plane_polling_tpu_torch.bin.logs_to_tb:main",
+            "gpp-torch-prepare-data="
+            "ground_plane_polling_tpu_torch.bin.prepare_data:main",
         ],
     },
 )

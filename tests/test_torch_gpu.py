@@ -651,3 +651,115 @@ def test_int8_conv_split_launches_in_a_row_agree(cuda):
     stream = torch._C._cuda_getCurrentRawStream(x8.device.index)
     _, counters = ic._workspaces[(x8.device.index, stream)]
     assert int(counters.abs().sum()) == 0
+
+
+# --- int8 depthwise convolution (csrc/int8_depthwise.cu) ------------------
+
+def _dw_operands(device, c, b, h, w, seed):
+    from ground_plane_polling_tpu_torch.kernels import int8_conv_cuda
+    from ground_plane_polling_tpu_torch.ops import int8_conv
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.normal(0, 3, (b, c, h, w)).astype(
+        np.float32)).to(device)
+    wt = torch.from_numpy(rng.normal(0, 0.3, (c, 1, 3, 3)).astype(
+        np.float32)).to(device)
+    s_x = float(np.float32(x.abs().max().item() / 127.0 * 0.8))
+    w8, s_w = int8_conv.quantize_weight(wt)
+    bias = torch.from_numpy(rng.normal(0, 1, c).astype(np.float32)).to(
+        device)
+    return int8_conv_cuda.quantize(x, s_x), s_x, w8, s_w, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("channels", [8, 24, 32, 1024, 3])
+def test_int8_depthwise_matches_plain(cuda, channels, stride):
+    """The depthwise kernel against the plain grouped float64 conv: int32
+    accumulators exactly, float32 and bf16 outputs (with and without bias)
+    bit for bit, at odd and even sizes with Flax SAME padding, at b1 and
+    b4; C 3 takes the byte-wise path. Each call launches once."""
+    from ground_plane_polling_tpu_torch.kernels import int8_depthwise_cuda
+    from ground_plane_polling_tpu_torch.models.resnet import same_padding
+    from ground_plane_polling_tpu_torch.ops import int8_conv
+
+    for b, h, w in ((1, 13, 42), (4, 9, 13), (1, 8, 14), (4, 26, 84)):
+        x8, s_x, w8, s_w, bias = _dw_operands(cuda, channels, b, h, w,
+                                              channels + h)
+        pad = same_padding(h, w, 3, stride)
+        before = int8_depthwise_cuda.DEPTHWISE_LAUNCHES
+        acc = int8_depthwise_cuda.depthwise2d_accumulate(x8, w8, stride, pad)
+        assert torch.equal(acc.cpu(), int8_conv.conv2d_int8(
+            x8.cpu(), w8.cpu(), stride, pad))
+        for dtype in (torch.float32, torch.bfloat16):
+            for bb in (None, bias.to(dtype)):
+                got = int8_depthwise_cuda.depthwise2d(x8, w8, s_x, s_w, bb,
+                                                      stride, pad, dtype)
+                assert got.dtype == dtype
+                assert got.permute(0, 2, 3, 1).is_contiguous()
+                want = int8_conv.int8_conv2d(x8, w8, s_x, s_w, bb, stride,
+                                             pad, dtype)
+                assert torch.equal(got.cpu(), want.cpu()), (b, h, w, dtype)
+        assert int8_depthwise_cuda.DEPTHWISE_LAUNCHES == before + 5
+
+
+@pytest.mark.gpu
+def test_int8_depthwise_raises_on_bad_inputs(cuda):
+    """Wrong dtype, layout, alignment or weight shape raise before a
+    launch: the count of launches is where it was."""
+    from ground_plane_polling_tpu_torch.kernels import int8_depthwise_cuda
+
+    x8, s_x, w8, s_w, bias = _dw_operands(cuda, 16, 1, 9, 13, 0)
+    pad = ((1, 1), (1, 1))
+    before = int8_depthwise_cuda.DEPTHWISE_LAUNCHES
+    flat = torch.empty(x8.numel() + 1, dtype=torch.int8, device=cuda)[1:]
+    unaligned = flat.view(1, 9, 13, 16).copy_(
+        x8.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    bad = {
+        "float input": (x8.float(), w8, s_w, None),
+        "nchw input": (x8.contiguous(), w8, s_w, None),
+        "unaligned input": (unaligned, w8, s_w, None),
+        "grouped, not depthwise": (x8, w8.repeat(1, 2, 1, 1), s_w, None),
+        "more outputs than channels": (x8, w8.repeat(2, 1, 1, 1), s_w,
+                                       None),
+        "5x5 kernel": (x8, torch.zeros(16, 1, 5, 5, dtype=torch.int8,
+                                       device=cuda), s_w, None),
+        "float64 scales": (x8, w8, s_w.double(), None),
+        "bias of another dtype": (x8, w8, s_w, bias.double()),
+        "cpu weight": (x8, w8.cpu(), s_w, None),
+    }
+    for what, (x, w, s, b) in bad.items():
+        with pytest.raises(ValueError):
+            int8_depthwise_cuda.depthwise2d(x, w, s_x, s, b, 1, pad,
+                                            torch.float32)
+            pytest.fail(what)
+    assert int8_depthwise_cuda.DEPTHWISE_LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_int8_mobilenet_forward_on_the_card_matches_cpu(cuda, tf32_off):
+    """A MobileNet trunk (alpha 0.25) in float32 under int8 on the card
+    against the CPU on one set of scales: the 13 depthwise sites launch the
+    depthwise kernel once each, and C3, C4, C5 agree within 1e-5 of
+    max|CPU| (the float ops between the int8 convs: frozen BN, ReLU6)."""
+    from ground_plane_polling_tpu_torch.kernels import int8_depthwise_cuda
+    from ground_plane_polling_tpu_torch.models import quantize as tq
+    from ground_plane_polling_tpu_torch.models.mobilenet import (
+        MobileNetBackbone)
+
+    torch.manual_seed(0)
+    cpu = MobileNetBackbone(0.25).eval()
+    card = MobileNetBackbone(0.25).eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda).to(memory_format=torch.channels_last)
+    x = torch.randn(2, 3, 72, 232) * 50
+    scales = tq.collect_scales(cpu, [x])
+    with torch.inference_mode():
+        want = tq.quantize_apply(cpu, scales)(x)
+        before = int8_depthwise_cuda.DEPTHWISE_LAUNCHES
+        got = tq.quantize_apply(card, scales)(x.to(cuda))
+        torch.cuda.synchronize()
+    assert int8_depthwise_cuda.DEPTHWISE_LAUNCHES == before + 13
+    for g, w in zip(got, want):
+        err = float((g.cpu() - w).abs().max() / w.abs().max())
+        assert err <= 1e-5, err

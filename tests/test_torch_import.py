@@ -61,7 +61,7 @@ def _run_blocked(body, tmp_path):
 
 @pytest.mark.parametrize("cli", ["serve", "evaluate", "evaluate_3d",
                                  "convert_model", "run_network", "train",
-                                 "logs_to_tb"])
+                                 "logs_to_tb", "prepare_data"])
 def test_cli_help_with_jax_blocked(cli, tmp_path):
     out = _run_blocked(
         "import runpy\n"
@@ -122,6 +122,48 @@ def test_int8_wrapper_has_no_fallback():
     """The int8 kernels' wrapper, too: no try/except around the launch."""
     src = (PORT / "kernels" / "int8_conv_cuda.py").read_text()
     assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE)
+
+
+def test_depthwise_wrapper_has_no_fallback():
+    """The int8 depthwise kernel's wrapper: no try/except around the
+    launch, and no other conv in its place."""
+    src = (PORT / "kernels" / "int8_depthwise_cuda.py").read_text()
+    assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE)
+    assert "conv2d(" not in src.replace("twin.int8_conv2d(", "")
+
+
+def test_backbones_and_host_tools_run_with_jax_blocked(tmp_path):
+    """Every backbone family, int8 with depthwise sites, data preparation,
+    profiling and the version check run without JAX."""
+    out = _run_blocked(
+        "import os, torch\n"
+        "from ground_plane_polling_tpu_torch.models import (\n"
+        "    backbone_registry, build_detector)\n"
+        "from ground_plane_polling_tpu_torch.models import quantize\n"
+        "from ground_plane_polling_tpu_torch.models.mobilenet import (\n"
+        "    MobileNetBackbone)\n"
+        "from ground_plane_polling_tpu_torch.data import (label_prep,\n"
+        "                                                 prepare_split)\n"
+        "from ground_plane_polling_tpu_torch.bin import prepare_data\n"
+        "from ground_plane_polling_tpu_torch.utils.profiling import (\n"
+        "    StageTimer, trace)\n"
+        "from ground_plane_polling_tpu_torch.utils import version_check\n"
+        "names = sorted(backbone_registry())\n"
+        "for n in ('tiny', 'vgg16', 'densenet121', 'mobilenet224_0.25'):\n"
+        "    m = build_detector(n, feature_size=16).to('meta')\n"
+        "    m(torch.empty(1, 3, 64, 96, device='meta'))\n"
+        "torch.manual_seed(0)\n"
+        "net = MobileNetBackbone(0.25).eval()\n"
+        "x = torch.randn(1, 3, 64, 64) * 50\n"
+        "s = quantize.collect_scales(net, [x])\n"
+        "with torch.inference_mode():\n"
+        "    c3, c4, c5 = quantize.quantize_apply(net, s)(x)\n"
+        "with trace('t', 'tr'):\n"
+        "    torch.ones(2) + 1\n"
+        "version_check.assert_compatible('cpu')\n"
+        "print(len(names), len(s), tuple(c5.shape), len(os.listdir('tr')))\n",
+        tmp_path)
+    assert out.strip() == "13 27 (1, 256, 2, 2) 1"
 
 
 def test_int8_modules_run_with_jax_blocked(tmp_path):

@@ -163,8 +163,9 @@ def test_full_resnet50_load_rejects_mismatch(tmp_path, resnet50_flat, edit):
 
 
 def test_build_detector_names_supported_backbones():
-    with pytest.raises(ValueError, match="resnet101"):
-        build_detector("vgg16")
+    """An unknown name raises and lists the registry's names."""
+    with pytest.raises(ValueError, match="resnet101.*vgg16"):
+        build_detector("mobilenet128")
 
 
 def test_seeded_init_semantics():
