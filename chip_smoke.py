@@ -95,7 +95,23 @@ Phases (any failure exits non-zero before the last line):
      --backbone mobilenet224_1.0 --int8 2 and --backbone densenet121 on
      phase 3's frames and bin/train --backbone vgg16 on phase 7's split,
      each a process of its own with a timeout.
-Phases 4-10 each drive their path with the launch counts set to 0 and fail
+ 11. the host-side extras: (a) g++'s version, whether png.h and jpeglib.h
+     are found, h5py's version; the native loader and the eval3d core
+     (built with g++ in phase 0, beside the nvcc builds; the phase fails if
+     the headers are there and the loader does not build); the loader
+     that phase 7d's bin/train took; phase 3's frames decoded by the
+     native loader equal to PIL's, the native canvases of phase 7's split
+     within one count of cv2's, and host ms per b2 training batch at
+     416x1344, native against cv2 in turns; (b) evaluate_3d on phase 3's
+     txts with the C++ core and with numpy, equal, both wall times; (c)
+     phase 3's weights as a Keras .h5 (the port's exporter) through
+     run_network and serve (phase 3's txts within its tolerances) and
+     convert_model back to equal arrays, where h5py is installed; (d)
+     run_network --save-images on phase 3's frames, bf16: one 2H x W
+     composite a frame, the polling kernel launched; (e) bin/debug
+     --anchors --resize --random-transform on phase 7's split: one PNG a
+     frame.
+Phases 4-11 each drive their path with the launch counts set to 0 and fail
 if a kernel of the path was not launched.
 
 Prints the kernel table as one JSON line, then as the last line
@@ -1119,12 +1135,18 @@ def phase7_train(torch, polling_cuda, tmp, cli, smi):
               str(TRAIN_SIDES[0]), "--image-max-side", str(TRAIN_SIDES[1])]
     polling_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         state = train_cli.main(common + ["kitti", root])
     launches = polling_cuda.LAUNCHES
     record = buf.getvalue().strip().splitlines()[-1]
     assert launches > 0, "the validation sweep did not launch the kernel"
+    # the default loader: native C++ where it builds, else cv2
+    loaders = sorted({ln for ln in err.getvalue().splitlines()
+                      if ln.startswith("KittiLoader:")})
+    result["7d"] = {"launches": launches, "loaders": loaders}
+    result["root"] = root
+    log("  default loader of bin/train: " + "; ".join(loaders))
     assert state.step == 4, state.step
     ckpt = latest_checkpoint(snaps)
     assert ckpt and ckpt.endswith("step_00000004.pt"), ckpt
@@ -2634,6 +2656,239 @@ def phase10_backbones(torch, polling_cuda, int8_conv_cuda,
     log(f"  phase 10 wall: {result['wall_s']:.2f} s")
     return result
 
+# phase 11: the host-side extras
+
+LOADER_TURNS = 3  # rounds of phase 11a's loader timing, each mode in turn
+
+
+def gxx_has_header(name):
+    """Whether g++ finds `name` on its default include path."""
+    try:
+        proc = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                              input=f"#include <{name}>\n",
+                              capture_output=True, text=True, timeout=60)
+    except OSError:
+        return False
+    return proc.returncode == 0
+
+
+def phase11a_loader(torch, trained, cli, smi, native_builds):
+    """What the machine has; the native loader against PIL and cv2; host
+    ms per training batch, native against cv2, in turns."""
+    from PIL import Image
+
+    from ground_plane_polling_tpu_torch.data import native_loader
+    from ground_plane_polling_tpu_torch.data.kitti import KittiDataset
+    from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
+    from ground_plane_polling_tpu_torch.kernels.nvcc_build import error_line
+
+    log("phase 11a: the host libraries and the native image loader")
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError):
+        gxx = None
+    headers = {h: gxx_has_header(h) for h in ("png.h", "jpeglib.h")}
+    try:
+        import h5py
+        h5 = f"h5py {h5py.__version__}"
+    except ImportError:
+        h5 = "h5py absent"
+    log(f"  g++: {gxx or 'absent'}; png.h "
+        f"{'found' if headers['png.h'] else 'absent'}, jpeglib.h "
+        f"{'found' if headers['jpeglib.h'] else 'absent'}; {h5}")
+    lib, sec, error = native_builds["eval3d"]
+    assert gxx is None or lib is not None, f"eval3d core: {error}"
+    lib, sec, error = native_builds["loader"]
+    if gxx and all(headers.values()):
+        assert lib is not None, f"native loader did not build: {error}"
+    root = trained["root"]
+    log(f"  bin/train in phase 7d: {'; '.join(trained['7d']['loaders'])}; "
+        f"{trained['7d']['launches']} polling launches in its validation "
+        "sweep")
+    if not native_loader.available():
+        log("  native loader unavailable here, frames go through cv2: "
+            + error_line(native_loader.build_error())
+            + "; native decode, resize and timing not measured")
+    else:
+        ours = native_loader.NativeImageLoader()
+        paths = sorted(os.path.join(cli["images"], n)
+                       for n in os.listdir(cli["images"]))
+        for path in paths:
+            rgb = np.asarray(Image.open(path).convert("RGB"))
+            got = ours.load_image(path, rgb.shape[:2], 1.0)
+            np.testing.assert_array_equal(got.astype(np.uint8),
+                                          rgb[:, :, ::-1], err_msg=path)
+        log(f"  decode of phase 3's {len(paths)} frames: equal to PIL's "
+            "pixels, bit for bit")
+    sides = dict(image_min_side=TRAIN_SIDES[0], image_max_side=TRAIN_SIDES[1])
+    kw = dict(batch_size=TRAIN_BATCH, augment=True, raw_batches=True,
+              seed=SEED, device=torch.device("cuda"), **sides)
+    modes = {"cv2": False}
+    if native_loader.available():
+        modes = {"native": True, "cv2": False}
+    loaders = {m: KittiLoader(KittiDataset(root, "train"),
+                              use_native_loader=on, **kw)
+               for m, on in modes.items()}
+    assert all(ld.image_shape == CANVAS for ld in loaders.values())
+    if "native" in loaders:
+        a, b = loaders["native"], loaders["cv2"]
+        worst = 0
+        for i in range(len(a.ds)):
+            pa, pb = a._load_padded(i), b._load_padded(i)
+            np.testing.assert_array_equal(pa[6], pb[6])  # true (h, w)
+            worst = max(worst, int(np.abs(pa[0].astype(int)
+                                          - pb[0].astype(int)).max()))
+        assert worst <= 1, worst
+        log(f"  resize and pad of {len(a.ds)} frames to {CANVAS[0]}x"
+            f"{CANVAS[1]}: native within {worst} count of cv2")
+    times = {m: [] for m in loaders}
+    for _ in range(LOADER_TURNS):
+        for m, ld in loaders.items():
+            for group in ld._groups:
+                t0 = time.perf_counter()
+                ld._make_batch(group, SEED, torch.device("cuda"))
+                times[m].append((time.perf_counter() - t0) * 1e3)
+    for m, t in times.items():
+        log(f"  {smi}: host loading (decode, resize, pad, pin; draws) "
+            f"{m}: median {np.median(t):.2f} ms a b{TRAIN_BATCH} batch at "
+            f"{CANVAS[0]}x{CANVAS[1]} (min {min(t):.2f}, max {max(t):.2f}, "
+            f"{len(t)} batches in {LOADER_TURNS} turns)")
+    return {m: float(np.median(t)) for m, t in times.items()}
+
+
+def phase11b_eval3d(cli, tmp):
+    """evaluate_3d on phase 3's KITTI txts (batch 1's without the score as
+    the ground truth, batch 4's as the detections), with the C++ core and
+    with the numpy path: equal results."""
+    from ground_plane_polling_tpu_torch.utils import eval3d
+
+    log("phase 11b: evaluate_3d with the C++ core and with the numpy path")
+    gt_dir = os.path.join(tmp, "eval3d_gt")
+    os.makedirs(gt_dir)
+    det_dir = cli["kitti_b1"].replace("out_b1", "out_b4")
+    n_rows = 0
+    for name in sorted(os.listdir(cli["kitti_b1"])):
+        rows = open(os.path.join(cli["kitti_b1"], name)).read().split("\n")
+        rows = [" ".join(r.split()[:15]) for r in rows if r.strip()]
+        n_rows += len(rows)
+        with open(os.path.join(gt_dir, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    ids = sorted(n[:-4] for n in os.listdir(gt_dir))
+    gts = eval3d.load_label_dir(gt_dir, ids)
+    dets = eval3d.load_label_dir(det_dir, ids)
+    real = eval3d._native
+    assert real() is not None, "the eval3d C++ core did not build"
+    out = {}
+    try:
+        for name, native in (("native", real), ("numpy", lambda: None)):
+            eval3d._native = native
+            t0 = time.perf_counter()
+            out[name] = (eval3d.evaluate_kitti_3d(gts, dets),
+                         time.perf_counter() - t0)
+    finally:
+        eval3d._native = real
+    (got, t_native), (want, t_numpy) = out["native"], out["numpy"]
+    assert json.dumps(got, sort_keys=True) == json.dumps(want,
+                                                         sort_keys=True)
+    log(f"  {len(ids)} frames, {n_rows} ground-truth rows: results equal; "
+        f"{t_native:.3f} s with the C++ core, {t_numpy:.3f} s with numpy "
+        f"(host wall); Car 3D moderate {got['Car']['3d']['moderate']:.4f}")
+    return {"native_s": t_native, "numpy_s": t_numpy}
+
+
+def phase11c_h5(torch, polling_cuda, cli, tmp):
+    """phase 3's weights as a Keras .h5 through run_network, serve and
+    convert_model; skipped where h5py is absent (host file IO: no kernel
+    is skipped)."""
+    log("phase 11c: .h5 weights (export, run_network, serve, convert_model)")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("  h5py absent on this machine: the .h5 part does not run")
+        return None
+    from ground_plane_polling_tpu_torch.bin import (convert_model,
+                                                    run_network, serve)
+    from ground_plane_polling_tpu_torch.models.h5_export import (
+        export_reference_h5)
+    from ground_plane_polling_tpu_torch.models.weights import load_npz
+
+    h5 = os.path.join(tmp, "model_h5.h5")
+    export_reference_h5(load_npz(cli["weights"]), h5)
+    frames = [cli["images"], cli["calibs"], cli["planes"]]
+    out = os.path.join(tmp, "out_h5")
+    polling_cuda.LAUNCHES = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_network.main([h5, *frames, out, "--kitti", "--no-bf16",
+                          "--device", "cuda"])
+    assert polling_cuda.LAUNCHES > 0
+    compare_txts(os.path.join(out, "model_h5", "outputs", "kitti"),
+                 cli["kitti_b1"], "run_network on the .h5")
+    served, _, _ = run_serve(serve, polling_cuda,
+                             [h5, *frames, os.path.join(tmp, "serve_h5"),
+                              "--once", "--no-bf16", "--batch-size", "2",
+                              "--device", "cuda"])
+    assert served == 4, served
+    compare_txts(os.path.join(tmp, "serve_h5"), cli["kitti_b1"],
+                 "serve on the .h5")
+    back = os.path.join(tmp, "from_h5.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_model.main([h5, back])
+    with np.load(back) as a, np.load(cli["weights"]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in b.files:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    log(f"  convert_model .h5 -> .npz: {len(b.files)} arrays equal to "
+        "phase 3's")
+    return True
+
+
+def phase11_host_extras(torch, polling_cuda, tmp, cli, trained, smi,
+                        native_builds):
+    """(a) the host libraries and the native loader, (b) evaluate_3d's C++
+    core against numpy, (c) .h5 weights, (d) run_network --save-images,
+    (e) bin/debug."""
+    from PIL import Image
+
+    from ground_plane_polling_tpu_torch.bin import debug, run_network
+
+    t_phase = time.perf_counter()
+    loading = phase11a_loader(torch, trained, cli, smi, native_builds)
+    evaluated = phase11b_eval3d(cli, tmp)
+    phase11c_h5(torch, polling_cuda, cli, tmp)
+
+    log("phase 11d: run_network --save-images on phase 3's frames, bf16")
+    out = os.path.join(tmp, "out_images")
+    polling_cuda.LAUNCHES = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_network.main([cli["weights"], cli["images"], cli["calibs"],
+                          cli["planes"], out, "--save-images", "--device",
+                          "cuda"])
+    launches = polling_cuda.LAUNCHES
+    assert launches > 0, "run_network did not launch the polling kernel"
+    comp = os.path.join(out, "model", "images", "composite")
+    names = sorted(os.listdir(comp))
+    assert names == [f"{i:06d}.png" for i in range(4)], names
+    for name in names:
+        raw = np.asarray(Image.open(os.path.join(cli["images"], name)))
+        png = np.asarray(Image.open(os.path.join(comp, name)))
+        assert png.shape == (2 * raw.shape[0], raw.shape[1], 3), png.shape
+    log(f"  {len(names)} composites of {2 * raw.shape[0]}x{raw.shape[1]}, "
+        f"{launches} polling launches")
+
+    log("phase 11e: bin/debug --anchors --resize --random-transform on "
+        "phase 7's split")
+    out = os.path.join(tmp, "debug_vis")
+    with contextlib.redirect_stdout(io.StringIO()):
+        debug.main(["--out", out, "--anchors", "--resize",
+                    "--random-transform", "kitti", trained["root"]])
+    frames = sorted(os.listdir(os.path.join(trained["root"], "train",
+                                            "images")))
+    assert sorted(os.listdir(out)) == frames, os.listdir(out)
+    log(f"  {len(frames)} PNGs, one a frame")
+    log(f"  phase 11 wall: {time.perf_counter() - t_phase:.2f} s")
+    return {"loading_ms": loading, "eval3d": evaluated}
+
 
 def load_int8_tree(root, alias):
     """(kernels.int8_conv_cuda, kernels.int8_depthwise_cuda or None) of the
@@ -2731,18 +2986,38 @@ def main(argv=None):
         t0 = time.perf_counter()
         return module.build(), time.perf_counter() - t0
 
+    def host_build(module):
+        """(library or None, seconds, g++'s error or None)."""
+        t0 = time.perf_counter()
+        try:
+            lib, error = module.build(), None
+        except (OSError, RuntimeError) as e:
+            lib, error = None, str(e)
+        return lib, time.perf_counter() - t0, error
+
     modules = [polling_cuda, int8_conv_cuda, int8_depthwise_cuda]
     other = other_dw = None
     if args.against:
         other, other_dw = load_int8_tree(args.against, "gpp_against")
         modules += [m for m in (other, other_dw) if m is not None]
-    # one nvcc for each source, started together
-    with ThreadPoolExecutor(len(modules)) as pool:
+    from ground_plane_polling_tpu_torch.data import native_loader
+    from ground_plane_polling_tpu_torch.kernels.nvcc_build import error_line
+    from ground_plane_polling_tpu_torch.utils import eval3d_native
+    # one nvcc for each source and one g++ for each host library, started
+    # together
+    with ThreadPoolExecutor(len(modules) + 2) as pool:
+        hosts = [pool.submit(host_build, m) for m in (native_loader,
+                                                      eval3d_native)]
         builds = list(pool.map(timed_build, modules))
+        native_builds = dict(zip(("loader", "eval3d"),
+                                 (h.result() for h in hosts)))
     for lib, sec in builds:
         log(f"  built {lib} in {sec:.2f} s (in parallel)")
         log("  " + lib.with_suffix(".log").read_text().strip().replace(
             "\n", "\n  "))
+    for name, (lib, sec, error) in native_builds.items():
+        log(f"  g++ {name}: " + (f"built {lib} in {sec:.2f} s (in parallel)"
+                                 if lib else "failed: " + error_line(error)))
     # the conv kernel runs on warpgroup MMAs: IGMMA in each instance's SASS
     igmma = sass_counts(builds[1][0], "IGMMA", "conv_kernel")
     log("  IGMMA instructions in the int8 conv kernel's SASS: "
@@ -2758,13 +3033,15 @@ def main(argv=None):
         phase4_serve(torch, polling_cuda, tmp, cli)
         phase5_fused(torch, polling_cuda)
         evaluated = phase6_evaluate(torch, polling_cuda, tmp, cli)
-        phase7_train(torch, polling_cuda, tmp, cli, smi)
+        trained = phase7_train(torch, polling_cuda, tmp, cli, smi)
         int8 = phase8_int8(torch, polling_cuda, int8_conv_cuda, tmp, cli,
                            other)
         parallel = phase9_parallel(torch, tmp, smi, evaluated["b1"])
         backbones = phase10_backbones(torch, polling_cuda, int8_conv_cuda,
                                       int8_depthwise_cuda, tmp, cli,
                                       other_dw)
+        phase11_host_extras(torch, polling_cuda, tmp, cli, trained, smi,
+                            native_builds)
     log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
         "phase 0's device query")
     pc = int8["per_call"]

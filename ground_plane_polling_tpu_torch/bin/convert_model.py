@@ -1,9 +1,11 @@
 """Convert exported weights or a training checkpoint into an inference
-artifact (port of ground_plane_polling_tpu/bin/convert_model.py for the
-.npz route): the flat `params/...` + `frozen/...` arrays of an .npz, or the
-model of a `step_*.pt` that bin/train wrote, are written to a new .npz,
-with a JSON sidecar that describes them (backbone, num_classes and the
-filter flags that run_network, serve and evaluate read).
+artifact (port of ground_plane_polling_tpu/bin/convert_model.py): the flat
+`params/...` + `frozen/...` arrays of an .npz, the model of a `step_*.pt`
+that bin/train wrote, or a reference Keras .h5 (models/h5_import.py) are
+written to a new .npz, with a JSON sidecar that describes them (backbone,
+num_classes and the filter flags that run_network, serve and evaluate
+read), or to a Keras .h5 in the reference's layout (models/h5_export.py,
+resnet family; no sidecar).
 
   python -m ground_plane_polling_tpu_torch.bin.convert_model \
       snapshots/step_00001234.pt model_out.npz --no-nms
@@ -23,9 +25,12 @@ import sys
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="Export inference weights.")
-    p.add_argument("checkpoint", help="an exported .npz weight file or a "
-                                      "step_*.pt training checkpoint")
-    p.add_argument("model_out", help="output .npz (+ .json sidecar)")
+    p.add_argument("checkpoint", help="an exported .npz weight file, a "
+                                      "step_*.pt training checkpoint or a "
+                                      "reference Keras .h5 checkpoint")
+    p.add_argument("model_out", help="output .npz (+ .json sidecar) or .h5 "
+                                     "(reference Keras layout, resnet "
+                                     "family)")
     p.add_argument("--backbone", default=None,
                    help="default: the input's .json sidecar if present, "
                         "else resnet50")
@@ -63,21 +68,17 @@ def _inferred_num_classes(flat):
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    for path in (args.checkpoint, args.model_out):
-        if path.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                f"{path}: Keras .h5 interop is ROADMAP A10b")
-    if not args.checkpoint.endswith((".npz", ".pt")):
+    if not args.checkpoint.endswith((".npz", ".pt", ".h5", ".hdf5")):
         raise NotImplementedError(
             f"{args.checkpoint}: JAX orbax checkpoints do not load here; "
             "the JAX package's convert_model "
             "(ground_plane_polling_tpu/bin/convert_model.py) turns one into "
             f"an .npz: convert_model {args.checkpoint} out.npz; or give an "
-            "exported .npz or a step_*.pt of bin/train")
+            "exported .npz, a step_*.pt of bin/train or a Keras .h5")
 
     import numpy as np
 
-    from ..models.weights import load_npz
+    from ..models.weights import H5_SUFFIXES, load_npz
     from ..training.checkpoint import checkpoint_params
 
     in_cfg = {}
@@ -85,8 +86,15 @@ def main(argv=None):
         with open(args.checkpoint + ".json") as f:
             in_cfg = json.load(f)
     backbone = args.backbone or in_cfg.get("backbone", "resnet50")
-    flat = (checkpoint_params(args.checkpoint)
-            if args.checkpoint.endswith(".pt") else load_npz(args.checkpoint))
+    if args.checkpoint.endswith(".pt"):
+        flat = checkpoint_params(args.checkpoint)
+    elif args.checkpoint.endswith(H5_SUFFIXES):
+        from ..models.h5_import import flatten_variables, load_reference_h5
+
+        flat = flatten_variables(load_reference_h5(args.checkpoint,
+                                                   backbone=backbone))
+    else:
+        flat = load_npz(args.checkpoint)
 
     inferred, cls_out_ch, num_anchors = _inferred_num_classes(flat)
     # precedence: flag > weights > input sidecar (a stale sidecar must not
@@ -98,6 +106,13 @@ def main(argv=None):
             f"--num-classes {num_classes} contradicts the loaded weights "
             f"(classification head width {cls_out_ch} -> {inferred} "
             f"classes at {num_anchors} anchors)")
+
+    if args.model_out.endswith(H5_SUFFIXES):
+        from ..models.h5_export import export_reference_h5
+
+        export_reference_h5(flat, args.model_out, backbone=backbone)
+        print(f"wrote {args.model_out} (reference Keras h5 layout)")
+        return
 
     np.savez(args.model_out, **flat)
 

@@ -1,11 +1,14 @@
 """Inference CLI (port of ground_plane_polling_tpu/bin/run_network.py): run the
 detector on a directory of images + calibrations, recover 6-DoF poses, and
-write .mat dumps and KITTI-format labels.
+write .mat dumps, KITTI-format labels and composite visualizations.
 
   python -m ground_plane_polling_tpu_torch.bin.run_network model.npz \
-      images/ calibs/ planes.mat out/ --kitti
+      images/ calibs/ planes.mat out/ --kitti --save-images
 
-The weights are the JAX package's exported .npz with its .json sidecar.
+The weights are the JAX package's exported .npz with its .json sidecar, or
+a Keras .h5 checkpoint of the reference (models/h5_import.py; num_classes
+from its head widths). `--save-images` writes one PNG a frame: the 2D
+boxes and keypoints above the 3D boxes of the recovered poses.
 Frames are bucketed by padded canvas shape and detected `--batch` at a time;
 a short bucket is padded by repeating its last frame. `--int8 [N]` runs
 every conv int8, calibrated on the first N frames (decoded once, then
@@ -28,7 +31,8 @@ import numpy as np
 def parse_args(argv):
     p = argparse.ArgumentParser(
         description="Run the network on a directory of images.")
-    p.add_argument("model_path", help=".npz weights (with .json sidecar)")
+    p.add_argument("model_path", help=".npz weights (with .json sidecar) "
+                                      "or a reference Keras .h5")
     p.add_argument("image_dir")
     p.add_argument("calib_dir")
     p.add_argument("plane_params_path", help=".mat road-plane database")
@@ -66,21 +70,13 @@ def parse_args(argv):
     p.add_argument("--int8-percentile", type=float, default=100.0,
                    help="clip calibrated ranges to this percentile of |x| "
                         "(100 = absmax)")
-    # option of the JAX CLI that the port does not have yet
     p.add_argument("--save-images", action="store_true",
-                   help="not ported yet (ROADMAP A10b)")
+                   help="Write composite 2D/3D visualization images.")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.save_images:
-        raise NotImplementedError(
-            "--save-images is not ported yet (ROADMAP A10b)")
-    if args.model_path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(
-            ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
-            ".npz with the JAX package's convert-model")
 
     import scipy.io
     import torch
@@ -88,9 +84,11 @@ def main(argv=None):
     from ..data.frames import prepare_network_frame
     from ..data.planes import load_plane_database
     from ..inference import make_detect_fn, place_model, require_device
-    from ..models import build_detector, load_weights
+    from ..models import build_detector, load_state, read_weights
     from ..models.quantize import collect_scales_uint8
     from ..utils.kitti_writer import write_kitti_file
+    from ..utils.visualization import (draw_3d_detections_from_pose,
+                                       draw_detections_with_keypoints)
 
     device = require_device(args.device)
     if not args.bf16:  # float32 means float32: no TF32 in convs or matmuls
@@ -102,10 +100,11 @@ def main(argv=None):
         with open(args.model_path + ".json") as f:
             cfg = json.load(f)
     backbone = args.backbone or cfg.get("backbone", "resnet50")
-    num_classes = cfg.get("num_classes", 1)
-    model = load_weights(build_detector(backbone, num_classes,
-                                        fuse_cls_dim=args.fuse_towers),
-                         args.model_path)
+    flat, num_classes = read_weights(args.model_path, backbone,
+                                     cfg.get("num_classes", 1))
+    model = load_state(build_detector(backbone, num_classes,
+                                      fuse_cls_dim=args.fuse_towers),
+                       flat, args.model_path)
     model = place_model(model, device,
                         torch.bfloat16 if args.bf16 else torch.float32)
     planes = load_plane_database(args.plane_params_path)
@@ -116,6 +115,9 @@ def main(argv=None):
     os.makedirs(os.path.join(out_root, "outputs", "full"), exist_ok=True)
     if args.kitti:
         os.makedirs(os.path.join(out_root, "outputs", "kitti"), exist_ok=True)
+    if args.save_images:
+        os.makedirs(os.path.join(out_root, "images", "composite"),
+                    exist_ok=True)
 
     detect_fns = {}
     quant_scales = None
@@ -149,13 +151,14 @@ def main(argv=None):
         return fr
 
     def write_outputs(fr, out, j):
-        """Write one image's .mat / KITTI txt from row j of a host copy of a
-        (possibly batched) detect output."""
+        """Write one image's .mat / KITTI txt / composite from row j of a
+        host copy of a (possibly batched) detect output."""
         scale = fr["scale"]
         keep = out["scores"][j] > args.score_threshold
         boxes = out["boxes"][j][keep] / scale
         scores = out["scores"][j][keep]
         labels = out["labels"][j][keep]
+        orientations = out["orientations"][j][keep]
         keypoints = out["keypoints"][j][keep].reshape(-1, 12)
         keyplanes = out["keyplanes"][j][keep].reshape(-1, 4)
         residuals = out["residuals"][j][keep]
@@ -178,6 +181,20 @@ def main(argv=None):
                 os.path.join(out_root, "outputs", "kitti", stem + ".txt"),
                 boxes, scores, locations, angles, dims, fr["raw"].shape[:2],
                 class_name=names)
+        if args.save_images:
+            from PIL import Image
+
+            top = draw_detections_with_keypoints(
+                fr["raw"].copy(), boxes, scores, labels, orientations,
+                score_threshold=0.4)
+            bottom = draw_3d_detections_from_pose(
+                fr["raw"].copy(), boxes[:, :4], orientations, residuals,
+                scores, labels, locations, angles, dims, fr["P"],
+                score_threshold=0.4)
+            comp = np.vstack([top, bottom])
+            Image.fromarray(comp[:, :, ::-1]).save(
+                os.path.join(out_root, "images", "composite",
+                             stem + ".png"))
 
     batch = max(1, args.batch)
     # the plane database is shared by every frame: upload it once

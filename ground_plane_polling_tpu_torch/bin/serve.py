@@ -20,7 +20,8 @@ The port's NMS reads a flag back from the card once per round, so the
 dispatch of a batch returns only after its filter stage, and the overlap is
 partial (ROADMAP A4). `--int8 [N]` calibrates int8 scales once, on the
 first N frames of the first round, before any detect call, and then runs
-every conv int8.
+every conv int8. A reference Keras .h5 is read by models/h5_import.py, its
+num_classes taken from its head widths, as run_network does.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import time
 def parse_args(argv):
     p = argparse.ArgumentParser(
         description="Micro-batching detection service over a directory.")
-    p.add_argument("model_path", help=".npz weights (with .json sidecar)")
+    p.add_argument("model_path", help=".npz weights (with .json sidecar) "
+                                      "or a reference Keras .h5")
     p.add_argument("image_dir", help="directory to watch for images")
     p.add_argument("calib_dir")
     p.add_argument("plane_params_path")
@@ -82,10 +84,6 @@ def _intake_cap(batch_size, int8_n):
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.model_path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(
-            ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
-            ".npz with the JAX package's convert-model")
 
     import numpy as np
     import torch
@@ -93,7 +91,7 @@ def main(argv=None):
     from ..data.frames import prepare_network_frame
     from ..data.planes import load_plane_database
     from ..inference import make_detect_fn, place_model, require_device
-    from ..models import build_detector, load_weights
+    from ..models import build_detector, load_state, read_weights
     from ..models.quantize import collect_scales_uint8
     from ..utils.kitti_writer import write_kitti_file
 
@@ -108,11 +106,11 @@ def main(argv=None):
         with open(args.model_path + ".json") as f:
             cfg = json.load(f)
     backbone = args.backbone or cfg.get("backbone", "resnet50")
-    num_classes = cfg.get("num_classes", 1)
-
-    model = load_weights(build_detector(backbone, num_classes,
-                                        fuse_cls_dim=args.fuse_towers),
-                         args.model_path)
+    flat, num_classes = read_weights(args.model_path, backbone,
+                                     cfg.get("num_classes", 1))
+    model = load_state(build_detector(backbone, num_classes,
+                                      fuse_cls_dim=args.fuse_towers),
+                       flat, args.model_path)
     model = place_model(model, device,
                         torch.bfloat16 if args.bf16 else torch.float32)
     planes = load_plane_database(args.plane_params_path)

@@ -7,7 +7,11 @@ them), on the card unless --device says otherwise.
       kitti /data/kitti
 
 The model is the seeded init (seed 0, as the JAX CLI's PRNGKey(0)) or
---weights x.npz (the JAX package's export). --snapshot auto resumes from
+--weights x.npz (the JAX package's export) or x.h5 (a reference Keras
+checkpoint, models/h5_import.py). --backbone-h5 lays a keras_resnet (or
+keras.applications) backbone file over it, and --imagenet-weights takes
+that file from the md5-checked cache of models/imagenet.py, fetching it
+once where the machine has network. --snapshot auto resumes from
 the newest checkpoint under --snapshot-path. Training steps prepare each batch (augmentation, anchor
 targets) inside the step (--fused-prepare, the default) or in the loader's
 producer thread (--no-fused-prepare); the validation sweep runs the
@@ -56,7 +60,8 @@ def parse_args(argv):
     p.add_argument("--image-max-side", type=int, default=1333)
     p.add_argument("--no-evaluation", action="store_true")
     p.add_argument("--weights", default=None,
-                   help="Initialize from an exported .npz weight file.")
+                   help="Initialize from an exported .npz weight file or a "
+                        "reference Keras .h5 checkpoint.")
     p.add_argument("--fused-prepare", default=True,
                    action=argparse.BooleanOptionalAction,
                    help="augmentation + anchor targets inside the train "
@@ -82,11 +87,15 @@ def parse_args(argv):
     p.add_argument("--tensorboard-dir", default=None,
                    help="also mirror each epoch's scalars into "
                         "TensorBoard event files")
-    # options of the JAX CLI that the port does not have yet
     p.add_argument("--backbone-h5", default=None,
-                   help="not ported yet (ROADMAP A10b)")
+                   help="Initialize the backbone from a keras_resnet (or "
+                        "keras.applications) h5; FPN and heads keep the "
+                        "seeded init")
     p.add_argument("--imagenet-weights", action="store_true",
-                   help="not available: the port downloads nothing")
+                   help="Initialize the backbone from the keras_resnet "
+                        "ImageNet h5 (cached and md5-checked, fetched once "
+                        "where the machine has network; otherwise use "
+                        "--backbone-h5 with a file fetched elsewhere)")
     return p.parse_args(argv)
 
 
@@ -95,26 +104,14 @@ def main(argv=None):
     if args.dataset_type != "kitti":
         raise SystemExit("only the kitti dataset is supported (like the "
                          "reference's implemented subset)")
-    if args.backbone_h5:
-        raise NotImplementedError(
-            "--backbone-h5 is not ported yet (ROADMAP A10b)")
-    if args.imagenet_weights:
-        raise NotImplementedError(
-            "--imagenet-weights: the port does not download ImageNet "
-            "weights (the JAX package fetches them from GitHub); start "
-            "from --weights, an .npz export")
-    if args.weights and args.weights.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(
-            ".h5 weights: the Keras import is ROADMAP A10b; convert them to "
-            ".npz with the JAX package's convert-model")
 
     import torch
 
     from ..data.kitti import KittiDataset
     from ..data.pipeline import KittiLoader
     from ..inference import require_device
-    from ..models import build_detector, init_detector
-    from ..models import load_weights
+    from ..models import (build_detector, export_jax_params, init_detector,
+                          load_state, read_weights)
     from ..parallel import data_parallel_mesh, initialize, is_multi_host
     from ..training.checkpoint import latest_checkpoint, restore_checkpoint
     from ..training.loop import fit
@@ -149,9 +146,24 @@ def main(argv=None):
     model = build_detector(args.backbone, num_classes=train_ds.num_classes,
                            remat=args.remat)
     if args.weights:
-        load_weights(model, args.weights)
+        load_state(model, read_weights(args.weights, args.backbone)[0],
+                   args.weights)
     else:
         init_detector(model, 0)
+    backbone_h5 = args.backbone_h5
+    if args.imagenet_weights and not backbone_h5:
+        from ..models.imagenet import download_imagenet
+
+        backbone_h5 = download_imagenet(args.backbone)
+    if backbone_h5:
+        from ..models.h5_import import (flatten_variables, load_reference_h5,
+                                        merge_backbone, unflatten_variables)
+
+        merged = merge_backbone(
+            unflatten_variables(export_jax_params(model)),
+            load_reference_h5(backbone_h5, backbone=args.backbone,
+                              backbone_only=True))
+        load_state(model, flatten_variables(merged), backbone_h5)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

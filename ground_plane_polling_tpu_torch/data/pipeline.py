@@ -1,11 +1,15 @@
 """Training and evaluation input pipeline (port of
 ground_plane_polling_tpu/data/pipeline.py).
 
-Host: read BGR, resize by the min/max-side rule (cv2, else PIL;
-`frames.resize_uint8`), pad into the image's padded-shape bucket as a uint8
-canvas, and pad the annotations and ignore boxes to fixed counts with masks
-and the true (h, w) of each frame on its canvas. Training draws each
-batch's augmentation parameters here too (`augment.draw_augmentation`).
+Host: read BGR, resize by the min/max-side rule and pad into the image's
+padded-shape bucket as a uint8 canvas, and pad the annotations and ignore
+boxes to fixed counts with masks and the true (h, w) of each frame on its
+canvas. Training draws each batch's augmentation parameters here too
+(`augment.draw_augmentation`). The frames go through the native C++ loader
+(data/native_loader.py: decode, float bilinear resize, pad, rounded to
+uint8) by default, as in the JAX package; when it does not build, or with
+`use_native_loader=False`, through cv2 (else PIL, `frames.resize_uint8`).
+Each loader says once on stderr which path it takes.
 
 Device (`prepare_batch`): cast the canvas to float32, augment each example
 at its true size, subtract the BGR means, and assign the anchor targets;
@@ -16,17 +20,17 @@ per-batch seeds from `seed`; `batch_size` is the global batch, and a rank
 loads only its rows of each group and keeps its rows of the augmentation
 drawn for the whole group, so the ranks' rows together are the batch one
 process would train on.
-
-The native C++ loader is ROADMAP A10b.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from ..kernels.nvcc_build import error_line
 from ..ops import anchors as anchor_ops
 from ..ops.targets import batched_anchor_targets
 from .augment import AugmentConfig, augment_batch, draw_augmentation
@@ -103,14 +107,8 @@ class KittiLoader:
                  max_ignore: int = 8, augment: bool = False,
                  augment_config: AugmentConfig = AugmentConfig(),
                  seed: int = 0, shuffle: bool = True,
-                 use_native_loader: bool = False,
+                 use_native_loader: bool = True,
                  raw_batches: bool = False, device="cuda", mesh=None):
-        if use_native_loader:
-            raise NotImplementedError(
-                "use_native_loader: the native C++ image loader is ROADMAP "
-                "A10b; the port resizes with cv2, else PIL")
-        from PIL import Image
-
         if mesh is not None and batch_size % mesh.size:
             raise ValueError(
                 f"batch size {batch_size} does not divide over the "
@@ -135,13 +133,30 @@ class KittiLoader:
         self._rng = np.random.RandomState(seed)
         self._gen = torch.Generator().manual_seed(seed)
 
+        # native C++ decode/resize/pad; cv2 (else PIL) when it does not
+        # build, as in the JAX package
+        self._native = None
+        if use_native_loader:
+            from . import native_loader
+
+            if native_loader.available():
+                self._native = native_loader.NativeImageLoader()
+                print("KittiLoader: native C++ image loader", file=sys.stderr)
+            else:
+                print("KittiLoader: native C++ image loader unavailable, "
+                      "resizing with cv2 (else PIL): "
+                      + error_line(native_loader.build_error()),
+                      file=sys.stderr)
+        else:
+            print("KittiLoader: cv2 (else PIL) resize, native loader off",
+                  file=sys.stderr)
+
         # one padded shape per distinct (post-resize, pad-rounded) size
         self._bucket_shape = {}
         self._hw = {}
         buckets = {}
         for i in range(len(dataset)):
-            with Image.open(dataset.image_paths[i]) as im:
-                hw = (im.height, im.width)
+            hw = self._image_hw(i)
             self._hw[i] = hw
             scale = resize_scale(hw, image_min_side, image_max_side)
             shape = tuple(int(np.ceil(s * scale / pad_multiple)) * pad_multiple
@@ -167,18 +182,47 @@ class KittiLoader:
     def __len__(self):
         return len(self._groups)
 
+    @property
+    def native(self) -> bool:
+        """Whether frames go through the native C++ loader."""
+        return self._native is not None
+
+    def _image_hw(self, i):
+        """(h, w) of frame i, probed from its file."""
+        if self._native is not None:
+            return self._native.image_size(self.ds.image_paths[i])
+        from PIL import Image
+
+        with Image.open(self.ds.image_paths[i]) as im:
+            return (im.height, im.width)
+
     def _load_padded(self, idx: int):
         """One frame: uint8 canvas of its bucket, at most max_annotations
         annotations and max_ignore ignore boxes scaled to it with their
         masks, the scale, and the true (h, w) on the canvas."""
         anns, ignores = self.ds.load_annotations(idx)
         h, w = self._bucket_shape[idx]
-        image = self.ds.load_image(idx)
-        scale = resize_scale(image.shape[:2], self.min_side, self.max_side)
-        resized = resize_uint8(image, scale)
-        padded = np.zeros((h, w, 3), np.uint8)
-        padded[: resized.shape[0], : resized.shape[1]] = resized[:h, :w]
-        true_hw = (min(resized.shape[0], h), min(resized.shape[1], w))
+        if self._native is not None:
+            src_hw = self._hw[idx]
+            scale = resize_scale(src_hw, self.min_side, self.max_side)
+            canvas = self._native.load_image(self.ds.image_paths[idx], (h, w),
+                                             scale)
+            # int(x + 0.5), not round(): the native resize's own size rule
+            # (round() would differ on exact halves and mask a real row)
+            true_hw = (min(int(src_hw[0] * scale + 0.5), h),
+                       min(int(src_hw[1] * scale + 0.5), w))
+            # the float bilinear rounded to the nearest count; clipped
+            # first, since a uint8 cast wraps
+            np.clip(canvas, 0.0, 255.0, out=canvas)
+            padded = np.rint(canvas, out=canvas).astype(np.uint8)
+        else:
+            image = self.ds.load_image(idx)
+            scale = resize_scale(image.shape[:2], self.min_side,
+                                 self.max_side)
+            resized = resize_uint8(image, scale)
+            padded = np.zeros((h, w, 3), np.uint8)
+            padded[: resized.shape[0], : resized.shape[1]] = resized[:h, :w]
+            true_hw = (min(resized.shape[0], h), min(resized.shape[1], w))
 
         ga = np.zeros((self.max_annotations, 17), np.float32)
         gm = np.zeros(self.max_annotations, bool)

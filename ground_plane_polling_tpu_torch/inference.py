@@ -26,7 +26,7 @@ import torch
 from .data.frames import resize_uint8, uint8_canvas
 from .data.kitti import BGR_MEAN, preprocess_image, resize_scale
 from .kernels import polling_cuda
-from .models import build_detector, init_detector, load_weights
+from .models import build_detector, init_detector, load_state, read_weights
 from .models.quantize import collect_scales, quantize_apply
 from .ops import anchors as anchor_ops
 from .ops.filtering import filter_detections_fused_batch
@@ -244,14 +244,12 @@ class GPPDetector:
         return self.model
 
     def load(self, weights_path: str):
-        """Load the JAX package's exported `.npz` weights, strictly; with
-        fused towers, split weights are converted on load. int8 scales are
-        kept; the int8 weights follow the new weights."""
-        if weights_path.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                ".h5 weights: the Keras import is ROADMAP A10b; convert them "
-                "to .npz with the JAX package's convert-model")
-        load_weights(self.model, weights_path)
+        """Load the JAX package's exported `.npz` weights or a reference
+        Keras `.h5` checkpoint (models/h5_import.py), strictly; with fused
+        towers, split weights are converted on load. int8 scales are kept;
+        the int8 weights follow the new weights."""
+        flat, _ = read_weights(weights_path, self.backbone, self.num_classes)
+        load_state(self.model, flat, weights_path)
         self.ready = True
         return self.model
 

@@ -1,12 +1,16 @@
-"""Build a CUDA source of the package with nvcc, at first use, into a shared
-library with a plain C interface in `_build/` beside the package (loaded
-with ctypes by the kernels' wrappers). A library is named by a hash of its
-flags, its source and every header the source reaches by `#include` in its
-own directory or an `-I` directory of the flags, so a changed source,
-header or flag builds anew; nvcc's report lands beside it as `.log`."""
+"""Build a source of the package at first use into a shared library with a
+plain C interface in `_build/` beside the package (loaded with ctypes): the
+CUDA kernels with nvcc, the host libraries of `native/` with g++. A library
+is named by a hash of its flags, its source and every header the source
+reaches by `#include` in its own directory or an `-I` directory of the
+flags, so a changed source, header or flag builds anew; the compiler's
+report lands beside it as `.log`. Each build writes a file of its own
+process and renames it into place, so processes that build at once agree
+on one library."""
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import re
@@ -14,8 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "build_key", "build_library", "nvcc",
-           "sources_of"]
+__all__ = ["BUILD_DIR", "CSRC", "build_key", "build_library", "error_line",
+           "load_library", "nvcc", "sources_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -76,19 +80,46 @@ def build_key(source: Path, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(source: Path, flags, name: str) -> Path:
-    """Compile `source` with `flags` (once per `build_key`) into
-    `_build/{name}_{key}.so` and return its path."""
-    out = BUILD_DIR / f"{name}_{build_key(source, flags)}.so"
+def build_library(source: Path, flags, name: str, compiler=None,
+                  libs=()) -> Path:
+    """Compile `source` with `flags` (once per `build_key` of the flags and
+    `libs`) into `_build/{name}_{key}.so` and return its path: `compiler`
+    (default nvcc) runs as `compiler *flags source *libs -o out`, the
+    libraries after the source that needs them. Raises RuntimeError with
+    the compiler's errors if it fails, OSError if it cannot be run."""
+    out = BUILD_DIR / f"{name}_{build_key(source, (*flags, *libs))}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *flags, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
+    compiler = compiler or nvcc()
+    proc = subprocess.run(
+        [compiler, *flags, str(source), *libs, "-o", str(tmp)],
+        capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed "
+                           f"({proc.returncode}) on {source}:\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: concurrent builds agree on one file
     return out
+
+
+def load_library(build) -> ctypes.CDLL:
+    """ctypes.CDLL of the library that `build()` returns. A file that does
+    not load (copied from a machine with other shared libraries) is
+    removed and built once more; raises OSError or RuntimeError if that
+    fails too."""
+    path = build()
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError:
+        path.unlink(missing_ok=True)
+        return ctypes.CDLL(str(build()))
+
+
+def error_line(message) -> str:
+    """The line of a build's error message that says what failed (the
+    compiler's first error, else its last line); "" for no message."""
+    lines = (message or "").strip().splitlines()
+    return next((ln for ln in lines if "error" in ln),
+                lines[-1] if lines else "")

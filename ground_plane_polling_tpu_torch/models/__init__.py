@@ -9,11 +9,12 @@ from . import densenet, mobilenet, tiny, vgg
 from .resnet import RESNET_STAGES, ResNetBackbone
 from .retinanet import GPPRetinaNet
 from .weights import (export_jax_params, fuse_detector_params, init_detector,
-                      load_jax_params, load_weights)
+                      load_jax_params, load_state, load_weights, read_weights)
 
 __all__ = ["backbone_registry", "build_detector", "fuse_detector_params",
            "GPPRetinaNet", "RESNET_STAGES", "export_jax_params",
-           "init_detector", "load_jax_params", "load_weights"]
+           "init_detector", "load_jax_params", "load_state", "load_weights",
+           "read_weights"]
 
 
 def backbone_registry() -> dict:

@@ -10,7 +10,8 @@ Module names mirror the Flax tree, so the mapping is by name.
 gamma = scale, beta = shift, mean 0, var 1 - eps); a fused model writes the
 `params/clsdim/...` tree that the JAX package's fused model reads.
 `fuse_detector_params` turns a split state dict into the fused one, and
-`load_weights` applies it when the model has fused towers.
+`load_state` applies it when the model has fused towers. A reference Keras
+`.h5` reaches the same arrays through models/h5_import.py (`read_weights`).
 
 `init_detector` makes random weights from a seed with the JAX package's
 init semantics: lecun_normal trunk and FPN convs, N(0, 0.01) tower and
@@ -32,7 +33,10 @@ from .common import (BN_EPS, PRIOR_PROB_BIAS, FrozenBatchNorm,
 from .heads import fuse_cls_dim_params
 
 __all__ = ["load_jax_params", "export_jax_params", "fuse_detector_params",
-           "load_npz", "load_weights", "init_detector"]
+           "load_npz", "load_state", "load_weights", "read_weights",
+           "init_detector", "H5_SUFFIXES"]
+
+H5_SUFFIXES = (".h5", ".hdf5")
 
 _BN_FIELDS = ("scale", "bias", "mean", "var")
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -131,11 +135,32 @@ def fuse_detector_params(state: dict) -> dict:
     return out
 
 
+def read_weights(path: str, backbone: str = "resnet50",
+                 num_classes: int = 1):
+    """(flat arrays, num_classes) of a weight file: an exported `.npz`
+    (num_classes as given, from its sidecar), or a reference Keras `.h5`
+    (models/h5_import.py, for `backbone`; num_classes from its head
+    widths, as the JAX package's CLIs take it)."""
+    if not path.endswith(H5_SUFFIXES):
+        return load_npz(path), num_classes
+    from .h5_import import flatten_variables, h5_num_classes, load_reference_h5
+
+    variables = load_reference_h5(path, backbone=backbone)
+    return flatten_variables(variables), h5_num_classes(variables)
+
+
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Strictly load an exported `.npz` into `model`: every array is used
-    and every module weight is filled, or this raises. A model with fused
-    towers takes split weights (converted here) or fused ones."""
-    state = load_jax_params(load_npz(path))
+    """Strictly load an exported `.npz` into `model` (`load_state`)."""
+    return load_state(model, load_npz(path), path)
+
+
+def load_state(model: torch.nn.Module, flat: dict,
+               what: str = "weights") -> torch.nn.Module:
+    """Strictly load the flat JAX arrays `flat` into `model`: every array is
+    used and every module weight is filled, or this raises (naming `what`).
+    A model with fused towers takes split weights (converted here) or fused
+    ones."""
+    state = load_jax_params(flat)
     if getattr(model, "fuse_cls_dim", False):
         state = fuse_detector_params(state)
     ref = model.state_dict()
@@ -144,7 +169,7 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     shapes = [k for k in set(ref) & set(state) if ref[k].shape != state[k].shape]
     if missing or unexpected or shapes:
         raise ValueError(
-            f"{path}: weights do not match the model: missing {missing[:10]}, "
+            f"{what}: weights do not match the model: missing {missing[:10]}, "
             f"unexpected {unexpected[:10]}, shape mismatch {sorted(shapes)[:10]}")
     model.load_state_dict(state, strict=True)
     return model

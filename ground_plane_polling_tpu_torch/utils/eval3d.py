@@ -1,8 +1,7 @@
 """KITTI official-metric evaluation: AP_2D / AP_BEV / AP_3D / AOS.
 
-Numpy copy of ground_plane_polling_tpu/utils/eval3d.py on its pure-numpy
-path (its C++ core, eval3d_native, is ROADMAP A10b: `_native()` returns
-None here).
+Copy of ground_plane_polling_tpu/utils/eval3d.py: the numpy path, and its
+C++ core (utils/eval3d_native.py) when that builds.
 
 The reference repo computes only a VOC-style 2D mAP during training; the paper's
 headline numbers (AP3D / AOS on the KITTI server, `README.md:3`) come from
@@ -146,9 +145,12 @@ def rotated_rect_corners(loc_xz: np.ndarray, ry: np.ndarray,
 
 
 def _native():
-    """The C++ core, or None. The JAX package's eval3d_native helper is not
-    ported yet (ROADMAP A10b), so every call takes the numpy path."""
-    return None
+    """The C++ core (utils/eval3d_native.py) or None. Lazy so importing
+    this module never triggers a g++ build; GPP_EVAL3D_NATIVE=0 forces
+    the pure-numpy path."""
+    from . import eval3d_native
+
+    return eval3d_native if eval3d_native.available() else None
 
 
 def polygon_area(poly: np.ndarray) -> float:

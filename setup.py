@@ -6,8 +6,9 @@ setup(
     description=("TPU-native (JAX/XLA/Pallas) monocular 3D object detection "
                  "with ground-plane polling"),
     packages=find_packages(exclude=("tests",)),
-    # the PyTorch port's CUDA sources, compiled at first use
-    package_data={"ground_plane_polling_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch port's CUDA and C++ sources, compiled at first use
+    package_data={"ground_plane_polling_tpu_torch": [
+        "csrc/*.cu", "csrc/*.cuh", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "scipy", "Pillow"],
@@ -45,6 +46,7 @@ setup(
             "ground_plane_polling_tpu_torch.bin.logs_to_tb:main",
             "gpp-torch-prepare-data="
             "ground_plane_polling_tpu_torch.bin.prepare_data:main",
+            "gpp-torch-debug=ground_plane_polling_tpu_torch.bin.debug:main",
         ],
     },
 )

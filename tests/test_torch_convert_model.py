@@ -1,4 +1,5 @@
-"""The port's convert_model (.npz -> .npz + .json) against the JAX package's:
+"""The port's convert_model (.npz or .h5 -> .npz + .json, or -> .h5) against
+the JAX package's:
 the sidecar describes the weights (num_classes from the head widths, the
 backbone and filter flags from the input's sidecar unless a flag is given,
 a contradicting --num-classes raises), and the arrays pass through
@@ -12,12 +13,14 @@ rtol 1e-4 / atol 1e-4, the atol scaled by the largest output magnitude.
 
 import functools
 import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from ground_plane_polling_tpu.bin.convert_model import main as jax_convert
+from ground_plane_polling_tpu.models import h5_import as jax_h5_import
 from ground_plane_polling_tpu.models.resnet import ResNetBackbone as JaxResNet
 from ground_plane_polling_tpu.models.retinanet import (
     GPPRetinaNet as JaxRetinaNet)
@@ -27,7 +30,10 @@ from ground_plane_polling_tpu_torch.models import (GPPRetinaNet,
                                                    export_jax_params,
                                                    init_detector,
                                                    load_weights)
+from ground_plane_polling_tpu_torch.models import h5_import
 from ground_plane_polling_tpu_torch.models.resnet import ResNetBackbone
+
+from .test_torch_h5 import assert_same_h5
 
 torch.set_num_threads(2)
 
@@ -138,13 +144,45 @@ def test_fused_export_is_refused(tmp_path):
         convert([path, str(tmp_path / "out.npz")])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["in.h5", "out.npz"], "A10b"), (["in.npz", "out.h5"], "A10b"),
-    (["snapshots/step_00000004", "out.npz"],
-     r"JAX package's convert_model "
-     r"\(ground_plane_polling_tpu/bin/convert_model\.py\) turns one into "
-     r"an \.npz: convert_model snapshots/step_00000004 out\.npz;")],
-    ids=["h5_in", "h5_out", "checkpoint_dir"])
-def test_unported_routes_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        convert(argv)
+@pytest.mark.parametrize("route", ["h5_in", "h5_out", "checkpoint_dir"])
+def test_unported_routes_raise(src, tmp_path, monkeypatch, route):
+    """The routes that raised before the h5 interop was ported now convert
+    as the JAX CLI does: .npz -> .h5 writes JAX's datasets (no sidecar),
+    and .h5 -> .npz gives JAX's arrays and sidecar (num_classes from the
+    heads), which are the source's. A JAX orbax checkpoint directory still
+    raises, naming the JAX package's route. The h5 tables take the shrunk
+    stages, in both packages."""
+    if route == "checkpoint_dir":
+        with pytest.raises(NotImplementedError,
+                           match=r"JAX package's convert_model "
+                           r"\(ground_plane_polling_tpu/bin/convert_model\.py\) "
+                           r"turns one into an \.npz: convert_model "
+                           r"snapshots/step_00000004 out\.npz;"):
+            convert(["snapshots/step_00000004", "out.npz"])
+        return
+    for table in (h5_import._KNOWN_STAGES, jax_h5_import._KNOWN_STAGES):
+        monkeypatch.setitem(table, "resnet50", SHRUNK)
+    flags = ["--backbone", "resnet50"]
+    ours, theirs = str(tmp_path / "ours"), str(tmp_path / "theirs")
+    if route == "h5_out":
+        convert([src, ours + ".h5"] + flags)
+        jax_convert([src, theirs + ".h5"] + flags)
+        assert_same_h5(ours + ".h5", theirs + ".h5")
+        assert not os.path.exists(ours + ".h5.json")
+        with np.load(src) as s:
+            tree = h5_import.load_reference_h5(ours + ".h5")
+            for key, value in h5_import.flatten_variables(tree).items():
+                np.testing.assert_array_equal(value, s[key], err_msg=key)
+        return
+    h5 = str(tmp_path / "src.h5")
+    jax_convert([src, h5] + flags)
+    convert([h5, ours + ".npz"] + flags)
+    jax_convert([h5, theirs + ".npz"] + flags)
+    assert _sidecar(ours + ".npz") == _sidecar(theirs + ".npz")
+    assert _sidecar(ours + ".npz")["num_classes"] == 2
+    with np.load(ours + ".npz") as a, np.load(theirs + ".npz") as b, \
+            np.load(src) as s:
+        assert sorted(a.files) == sorted(b.files) == sorted(s.files)
+        for key in a.files:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+            np.testing.assert_array_equal(a[key], s[key], err_msg=key)

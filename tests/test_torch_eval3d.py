@@ -4,11 +4,12 @@ ground truth and detections: 12 frames of Cars, Vans, Pedestrians,
 Cyclists and DontCare regions, the detections jittered copies of the
 ground truth plus false positives, one detection file missing.
 
-The JAX package takes its C++ core when it builds (eval3d_native); the
-port has the numpy path only. Tolerances: result dicts within abs 1e-6
-(APs in percent; the two paths compute the same overlaps to about 1e-12,
-and a score threshold lands on a different side only on an exact tie),
-and equal exactly when the JAX package is held to its numpy path too.
+Both packages take their C++ core when it builds (eval3d_native, the same
+source with the same flags). Tolerances: the two C++ cores equal exactly,
+and so do the two numpy paths; one package's C++ core against a numpy path
+within abs 1e-6 (APs in percent; the two paths compute the same overlaps
+to about 1e-12, and a score threshold lands on a different side only on an
+exact tie).
 """
 
 import json
@@ -20,8 +21,9 @@ import pytest
 
 from ground_plane_polling_tpu.bin.evaluate_3d import main as jax_cli
 from ground_plane_polling_tpu.utils import eval3d as jax_eval3d
+from ground_plane_polling_tpu.utils import eval3d_native as jax_eval3d_native
 from ground_plane_polling_tpu_torch.bin.evaluate_3d import main as port_cli
-from ground_plane_polling_tpu_torch.utils import eval3d
+from ground_plane_polling_tpu_torch.utils import eval3d, eval3d_native
 
 CLASSES = ["Car", "Pedestrian", "Cyclist"]
 N_FRAMES = 12
@@ -104,8 +106,60 @@ def _assert_results_close(got, want, tol):
                                                              diff)
 
 
-def test_port_has_no_native_core():
+def test_port_has_no_native_core(dirs, monkeypatch):
+    """The port had the numpy path only; now it takes its own C++ core as
+    the JAX package does: the cores' overlaps and results are equal
+    exactly, and the core equals the numpy path (GPP_EVAL3D_NATIVE=0)
+    within abs 1e-6."""
+    if not (eval3d_native.available() and jax_eval3d_native.available()):
+        pytest.skip("native eval3d core unavailable: "
+                    f"{eval3d_native.build_error()}")
+    assert eval3d._native() is eval3d_native
+    gt, det = _load(eval3d, dirs)
+    for g, d in zip(gt, det):
+        for fn in ("bev_overlap", "overlap_3d"):
+            np.testing.assert_array_equal(getattr(eval3d_native, fn)(d, g),
+                                          getattr(jax_eval3d_native, fn)(d,
+                                                                         g))
+    got = eval3d.evaluate_kitti_3d(gt, det, classes=CLASSES)
+    want = jax_eval3d.evaluate_kitti_3d(*_load(jax_eval3d, dirs),
+                                        classes=CLASSES)
+    _assert_results_close(got, want, 0.0)
+    monkeypatch.setenv("GPP_EVAL3D_NATIVE", "0")
     assert eval3d._native() is None
+    _assert_results_close(
+        got, eval3d.evaluate_kitti_3d(gt, det, classes=CLASSES), 1e-6)
+
+
+def test_oversized_image_takes_the_numpy_path(tmp_path, monkeypatch):
+    """More than 4,096 detections in one image exceed the C++ core's buffer:
+    that image takes the numpy path (as in the JAX package), with the
+    numpy path's result."""
+    if not eval3d_native.available():
+        pytest.skip("native eval3d core unavailable")
+    rng = np.random.RandomState(11)
+    car = dict(typ="Car", trunc=0.0, occ=0, alpha=0.3,
+               bbox=(400, 150, 520, 230), dims=(1.5, 1.6, 4.0),
+               loc=(1.0, 1.65, 20.0), ry=0.2)
+    (tmp_path / "gt.txt").write_text(_row(**car) + "\n")
+    (tmp_path / "det.txt").write_text("\n".join(
+        [_row(**car, score=0.95)]
+        + [_row(**_object(rng, "Car"), score=rng.uniform(0.05, 0.9))
+           for _ in range(4100)]) + "\n")
+    gts = [eval3d.parse_label_file(str(tmp_path / "gt.txt"))]
+    dets = [eval3d.parse_label_file(str(tmp_path / "det.txt"))]
+    calls = []
+    real = eval3d_native.compute_stats
+    monkeypatch.setattr(eval3d_native, "compute_stats",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = eval3d.evaluate_kitti_3d(gts, dets, metrics=("bbox",),
+                                   ap_mode="11")
+    assert not calls
+    monkeypatch.setenv("GPP_EVAL3D_NATIVE", "0")
+    want = eval3d.evaluate_kitti_3d(gts, dets, metrics=("bbox",),
+                                    ap_mode="11")
+    _assert_results_close(got, want, 0.0)
+    assert got["Car"]["bbox"]["moderate"] > 0
 
 
 def test_label_dirs_parse_as_in_jax(dirs):

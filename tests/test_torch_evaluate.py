@@ -5,17 +5,19 @@ the evaluate CLI, on a 5-frame prepared split with two padded shapes
 their detections), float32, canvases 64x224 and 64x192.
 
 Tolerances:
-  * loader: bit for bit against the JAX KittiLoader with its native C++
-    loader off (the port has the cv2/PIL path only);
+  * loader: bit for bit against the JAX KittiLoader, both with the native
+    C++ loader off (cv2) here, and both on in
+    tests/test_torch_native_loader.py and below;
   * per-bucket AP: abs 1e-6 (the detections' scores agree to about 1e-6
     and are far apart, so the ranking is the same and AP is equal);
   * mean L1 errors: abs 1e-4 (keypoints in pixels, dims in metres: the
     float32 detections of the two frameworks agree to about 1e-4).
-The JAX CLI normally takes its native loader, whose float bilinear resize
+Both CLIs normally take their native loader, whose float bilinear resize
 differs from cv2 by up to one count; random weights move individual
 detections for such a change (mAP 0.312 against 0.270 on this split), so
-the CLI comparison switches the native loader off, as the constructor's
-`use_native_loader=False` does.
+most CLI comparisons switch both native loaders off, as the constructor's
+`use_native_loader=False` does, and one compares the two defaults, native
+loader on in both.
 """
 
 import contextlib
@@ -36,6 +38,7 @@ from ground_plane_polling_tpu.data.kitti import (
 from ground_plane_polling_tpu.data.pipeline import KittiLoader as JaxLoader
 from ground_plane_polling_tpu.utils import eval as jax_eval
 from ground_plane_polling_tpu_torch.bin.evaluate import main as evaluate
+from ground_plane_polling_tpu_torch.data import native_loader
 from ground_plane_polling_tpu_torch.data.kitti import (KittiDataset,
                                                        parse_modified_label)
 from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
@@ -103,15 +106,44 @@ def jax_run(split):
 
 @pytest.fixture(scope="module")
 def port_runs(split):
+    """The port's evaluate CLI (native loader off), three ways."""
     weights, root = split
     runs = {}
-    with _tf32_restored():
+    with _tf32_restored(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native_loader, "available", lambda: False)
         for name, extra in (("b4", []), ("b1", ["--eval-batch", "1"]),
                             ("fused", ["--fuse-towers"])):
             (mean_ap, errors), lines = _captured(
                 evaluate, [weights, root, "--device", "cpu"] + SIDES + extra)
             runs[name] = {"mAP": mean_ap, "errors": errors, "lines": lines}
     return runs
+
+
+@pytest.fixture(scope="module")
+def default_runs(split):
+    """Both evaluate CLIs as a user runs them: native loader on (the JAX
+    run's evaluate_model result kept from inside its CLI)."""
+    if not (native_loader.available() and jax_native_loader.available()):
+        pytest.skip("native loader toolchain unavailable")
+    weights, root = split
+    seen = {}
+    real = jax_loop.evaluate_model
+
+    def spy(*args, **kwargs):
+        seen["result"] = real(*args, **kwargs)
+        return seen["result"]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_loop, "evaluate_model", spy)
+        (mean_ap, errors), lines = _captured(jax_evaluate,
+                                             [weights, root] + SIDES)
+    jax_ = {"mAP": mean_ap, "errors": errors, "lines": lines,
+            "aps": seen["result"][2]}
+    with _tf32_restored():
+        (mean_ap, errors), lines = _captured(
+            evaluate, [weights, root, "--device", "cpu"] + SIDES)
+    return {"port": {"mAP": mean_ap, "errors": errors, "lines": lines},
+            "jax": jax_}
 
 
 def _assert_same_metrics(got, want):
@@ -166,7 +198,8 @@ def test_parse_modified_label_matches_jax(tmp_path):
 def test_eval_inputs_equal_jax_bit_for_bit(split, sides):
     _, root = split
     got = list(KittiLoader(KittiDataset(root, "val"), image_min_side=sides[0],
-                           image_max_side=sides[1]).eval_inputs())
+                           image_max_side=sides[1],
+                           use_native_loader=False).eval_inputs())
     want = list(JaxLoader(JaxDataset(root, "val"), image_min_side=sides[0],
                           image_max_side=sides[1], shuffle=False,
                           use_native_loader=False).eval_inputs())
@@ -195,11 +228,24 @@ def test_loader_buckets_equal_jax(split, sides, pad):
 
 
 def test_training_batches_are_not_ported(split):
-    """Training batches are ported (tests/test_torch_train_loop.py) except
-    through the JAX package's native C++ loader, which raises."""
+    """Training batches through the native C++ loader, which raised before
+    it was ported: the port's default loader is native, as the JAX
+    package's, and its unaugmented raw batches of this split equal JAX's
+    bit for bit (more cases: tests/test_torch_native_loader.py)."""
+    if not (native_loader.available() and jax_native_loader.available()):
+        pytest.skip("native loader toolchain unavailable")
     _, root = split
-    with pytest.raises(NotImplementedError, match="A10b"):
-        KittiLoader(KittiDataset(root, "val"), use_native_loader=True)
+    kw = dict(batch_size=2, image_min_side=64, image_max_side=224,
+              raw_batches=True, shuffle=False)
+    port = KittiLoader(KittiDataset(root, "val"), device="cpu", **kw)
+    jax_ = JaxLoader(JaxDataset(root, "val"), **kw)
+    assert port.native
+    got, want = list(port.epoch(prefetch=0)), list(jax_.epoch(prefetch=0))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for key in ("images", "annotations", "ann_mask", "sizes", "valid"):
+            np.testing.assert_array_equal(g[key].numpy(), w[key],
+                                          err_msg=key)
 
 
 # --- utils/eval.py -----------------------------------------------------------
@@ -258,7 +304,7 @@ def test_evaluate_detections_matches_jax(num_classes):
 def test_evaluate_model_matches_jax(split, jax_run):
     weights, root = split
     loader = KittiLoader(KittiDataset(root, "val"), image_min_side=64,
-                         image_max_side=224)
+                         image_max_side=224, use_native_loader=False)
     model = place_model(load_weights(build_detector("resnet50"), weights),
                         "cpu")
     mean_ap, errors, aps = evaluate_model(model, loader, eval_batch=2)
@@ -283,6 +329,17 @@ def test_evaluate_cli_matches_jax_cli(port_runs, jax_run):
     assert printed["mAP"] == got["mAP"]
 
 
+def test_default_evaluate_matches_jax_default(default_runs, jax_run):
+    """Both CLIs with their defaults, native loader on: the same per-bucket
+    AP lines, mAP and errors (the native loader moves this split's mAP
+    off the cv2 runs' in both packages alike)."""
+    got, want = default_runs["port"], default_runs["jax"]
+    _assert_same_metrics(got, want)
+    assert got["lines"][:-1] == want["lines"][:-1]
+    assert len(got["lines"]) == 5
+    assert got["mAP"] != pytest.approx(jax_run["mAP"], abs=1e-3)
+
+
 def test_eval_batch_1_equals_batch_4(port_runs):
     _assert_same_metrics(port_runs["b1"], port_runs["b4"])
     assert port_runs["b1"]["lines"][:-1] == port_runs["b4"]["lines"][:-1]
@@ -299,7 +356,7 @@ def test_float_images_are_taken_as_preprocessed(split, port_runs):
     the uint8 sweep's metrics."""
     weights, root = split
     loader = KittiLoader(KittiDataset(root, "val"), image_min_side=64,
-                         image_max_side=224)
+                         image_max_side=224, use_native_loader=False)
 
     class FloatLoader:
         def eval_inputs(self):
@@ -319,10 +376,12 @@ def test_float_images_are_taken_as_preprocessed(split, port_runs):
 
 
 def test_data_parallel_in_one_process_runs_single_device(split, port_runs,
-                                                         capsys):
+                                                         capsys, monkeypatch):
     """--data-parallel without a multi-process launch: a note (as the JAX
-    CLI's) and the single-device sweep's results, --eval-batch 4's."""
+    CLI's) and the single-device sweep's results, --eval-batch 4's (native
+    loader off, as in port_runs)."""
     weights, root = split
+    monkeypatch.setattr(native_loader, "available", lambda: False)
     with _tf32_restored():
         (mean_ap, errors), lines = _captured(
             evaluate, [weights, root, "--device", "cpu", "--data-parallel"]

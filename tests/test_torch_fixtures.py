@@ -86,7 +86,10 @@ def make_prepared_split(root, model, subset="val", min_side=64,
                         planes)
 
     ds = KittiDataset(root, subset)
-    loader = KittiLoader(ds, image_min_side=min_side, image_max_side=max_side)
+    # labels from the cv2 canvases, the frames of the CLI comparisons that
+    # switch both native loaders off
+    loader = KittiLoader(ds, image_min_side=min_side, image_max_side=max_side,
+                         use_native_loader=False)
     for item in loader.eval_inputs():
         detect = make_detect_fn(model, item["image"].shape[1:3],
                                 device_preprocess=True, device="cpu")

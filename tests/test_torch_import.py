@@ -61,7 +61,7 @@ def _run_blocked(body, tmp_path):
 
 @pytest.mark.parametrize("cli", ["serve", "evaluate", "evaluate_3d",
                                  "convert_model", "run_network", "train",
-                                 "logs_to_tb", "prepare_data"])
+                                 "logs_to_tb", "prepare_data", "debug"])
 def test_cli_help_with_jax_blocked(cli, tmp_path):
     out = _run_blocked(
         "import runpy\n"
@@ -104,7 +104,7 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize(
     "path", sorted(list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu"))
-                   + [REPO / "chip_smoke.py"]),
+                   + list(PORT.rglob("*.cpp")) + [REPO / "chip_smoke.py"]),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_reference_in_port_sources(path):
     hits = _FORBIDDEN.findall(path.read_text())
@@ -210,3 +210,53 @@ def test_parallel_remat_and_tensorboard_run_with_jax_blocked(tmp_path):
         "print(mesh.size, rows.tolist(), len(os.listdir('tb')),\n"
         "      m.backbone.remat)\n", tmp_path)
     assert out.strip() == "1 [0, 1, 2, 3] 1 True"
+
+
+def test_host_extras_run_with_jax_blocked(tmp_path):
+    """The native loader and eval3d core (built from the port's own
+    sources), the h5 export and import, the ImageNet cache (fetch
+    injected), the drawing functions and bin/debug run without JAX."""
+    from PIL import Image
+
+    import numpy as np
+
+    Image.fromarray(np.full((20, 30, 3), 7, np.uint8)).save(
+        tmp_path / "a.png")
+    out = _run_blocked(
+        "import hashlib, numpy as np, torch\n"
+        "from ground_plane_polling_tpu_torch.data import native_loader\n"
+        "from ground_plane_polling_tpu_torch.utils import (eval3d,\n"
+        "    eval3d_native, visualization)\n"
+        "from ground_plane_polling_tpu_torch.models import (\n"
+        "    GPPRetinaNet, h5_export, h5_import, imagenet, init_detector,\n"
+        "    load_state)\n"
+        "from ground_plane_polling_tpu_torch.models.resnet import (\n"
+        "    ResNetBackbone)\n"
+        "from ground_plane_polling_tpu_torch.bin import debug\n"
+        "if native_loader.available():\n"
+        "    img = native_loader.NativeImageLoader().load_image(\n"
+        "        'a.png', (32, 32), 1.0)\n"
+        "    print('native', img.shape, float(img[:20, :30].mean()))\n"
+        "else:\n"
+        "    print('native', native_loader.build_error().splitlines()[-1])\n"
+        "print('eval3d', eval3d._native() is not None)\n"
+        "m = init_detector(GPPRetinaNet(ResNetBackbone((1, 1, 1, 1)),\n"
+        "                               feature_size=64), 0)\n"
+        "h5_export.export_reference_h5(m, 'm.h5', stage_sizes=(1,) * 4)\n"
+        "load_state(m, h5_import.flatten_variables(\n"
+        "    h5_import.load_reference_h5('m.h5', stage_sizes=(1,) * 4)))\n"
+        "print('h5 ok')\n"
+        "md5 = hashlib.md5(b'w').hexdigest()\n"
+        "imagenet._CHECKSUMS['resnet50'] = md5\n"
+        "def fetch(url, dest):\n"
+        "    open(dest, 'wb').write(b'w')\n"
+        "print('cached', imagenet.download_imagenet(\n"
+        "    'resnet50', cache_dir='c', fetch=fetch).endswith('.h5'))\n"
+        "c = visualization.draw_boxes(np.zeros((8, 8, 3), np.uint8),\n"
+        "                             np.array([[6, 6, 1, 1]]), (0, 0, 255))\n"
+        "print('drawn', int(c.sum() > 0))\n"
+        "print(debug.parse_args(['kitti', 'x']).dataset_type)\n", tmp_path)
+    lines = out.splitlines()
+    assert lines[0] == "native (32, 32, 3) 7.0" or "png.h" in lines[0]
+    assert lines[1:] == ["eval3d True", "h5 ok", "cached True", "drawn 1",
+                         "kitti"]

@@ -43,6 +43,8 @@ from ground_plane_polling_tpu.bin.evaluate import main as jax_evaluate
 from ground_plane_polling_tpu.bin.run_network import main as jax_run_network
 from ground_plane_polling_tpu.bin.serve import main as jax_serve
 from ground_plane_polling_tpu.data import native_loader as jax_native_loader
+from ground_plane_polling_tpu_torch.data import (
+    native_loader as port_native_loader)
 import ground_plane_polling_tpu_torch.models.quantize as tq
 import ground_plane_polling_tpu_torch.training.loop as port_loop
 from ground_plane_polling_tpu_torch.bin import serve as serve_mod
@@ -136,6 +138,7 @@ def runs(split):
                     jax_cli[name], out_jax)
             mp.setattr(tq, "collect_scales_uint8", port_spy)
             mp.setattr(port_loop, "collect_scales_uint8", port_spy)
+            mp.setattr(port_native_loader, "available", lambda: False)
             seen["port_result"], seen["port_lines"] = _quiet(
                 port_cli[name], out_port)
         seen["dirs"] = (out_jax, out_port)

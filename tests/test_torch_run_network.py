@@ -1,7 +1,8 @@
 """Both run_network CLIs on the synthetic KITTI fixture with one .npz (a JAX
 ResNet-50 init whose classification out kernel is redrawn from N(0, 0.05)
 with a zero bias, so detections pass 0.05) and its .json sidecar, float32,
-64x224 canvas.
+64x224 canvas; the port also on the same weights as a reference Keras .h5,
+and both with --save-images (composites pixel for pixel).
 
 The KITTI txts must have equal row counts and types; the 2D box and score
 fields agree to +-0.01 (the txt's 2-decimal rounding); the 3D fields use the
@@ -19,11 +20,16 @@ import numpy as np
 import pytest
 import scipy.io
 import torch
+from PIL import Image
 
 from ground_plane_polling_tpu.bin.run_network import main as jax_run_network
 from ground_plane_polling_tpu.models import build_detector
+from ground_plane_polling_tpu.models.h5_export import (
+    export_reference_h5 as jax_export_h5)
 from ground_plane_polling_tpu.training.checkpoint import export_params
+from ground_plane_polling_tpu.utils import visualization as jax_visualization
 from ground_plane_polling_tpu_torch.bin.run_network import main as run_network
+from ground_plane_polling_tpu_torch.utils import visualization
 
 from .fixtures import make_synthetic_kitti
 
@@ -48,25 +54,42 @@ def cli_outputs(tmp_path_factory):
     export_params(weights, variables)
     with open(weights + ".json", "w") as f:
         json.dump({"backbone": "resnet50", "num_classes": 1}, f)
+    # the same weights as a reference Keras h5 (no sidecar)
+    h5 = str(tmp / "model_h5.h5")
+    jax_export_h5(variables, h5)
 
     common = [weights, os.path.join(root, "train", "images"),
               os.path.join(root, "train", "calibs"),
               os.path.join(root, "road_planes_database.mat")]
     flags = ["--kitti", "--no-bf16", "--image-min-side", "64",
              "--image-max-side", "224"]
-    runs = {"jax": (jax_run_network, []),
-            "torch_b1": (run_network, ["--device", "cpu"]),
+    runs = {"jax": (jax_run_network, ["--save-images"]),
+            "torch_b1": (run_network, ["--device", "cpu", "--save-images"]),
+            "torch_h5": (run_network, ["--device", "cpu"]),
             "torch_b2": (run_network, ["--device", "cpu", "--batch", "2"]),
             "torch_fused": (run_network, ["--device", "cpu",
                                           "--fuse-towers"])}
-    outputs = {}
+    outputs = {"frames": os.path.join(root, "train", "images")}
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     try:
         for name, (fn, extra) in runs.items():
             odir = str(tmp / name)
-            fn(common + [odir] + flags + extra)
-            base = os.path.join(odir, "model", "outputs")
+            argv = ([h5] + common[1:] if name == "torch_h5" else common)
+            with pytest.MonkeyPatch.context() as mp:
+                # the JAX package's draw_box raises on the inverted boxes
+                # of these random weights under PIL >= 9.5: its composites
+                # take the port's, which orders the corners
+                mp.setattr(jax_visualization, "draw_box",
+                           visualization.draw_box)
+                fn(argv + [odir] + flags + extra)
+            stem = "model_h5" if name == "torch_h5" else "model"
+            base = os.path.join(odir, stem, "outputs")
+            images = os.path.join(odir, stem, "images", "composite")
+            if os.path.isdir(images):
+                outputs[name + "_composites"] = {
+                    n: np.asarray(Image.open(os.path.join(images, n)))
+                    for n in sorted(os.listdir(images))}
             outputs[name] = {
                 n: (open(os.path.join(base, "kitti", n)).read().splitlines(),
                     scipy.io.loadmat(os.path.join(
@@ -174,14 +197,34 @@ def test_port_fuse_towers_matches_split(cli_outputs):
                                        rtol=rtol, err_msg=f"{fn} {key}")
 
 
-@pytest.mark.parametrize("flag,item", [("--save-images", "A10b")])
-def test_unported_flags_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_network(["m.npz", str(tmp_path), str(tmp_path), "p.mat",
-                     str(tmp_path), flag])
+@pytest.mark.parametrize("flag,item", [
+    pytest.param("--save-images", "composite", id="--save-images-A10b")])
+def test_unported_flags_raise(cli_outputs, flag, item):
+    """--save-images, which raised before it was ported: one composite PNG
+    a frame (2D boxes and keypoints over the 3D boxes of the poses, 2H x
+    W), equal pixel for pixel to the JAX CLI's on this fixture (whose
+    draw_box takes the port's ordered corners: these random weights give
+    inverted boxes, on which the JAX package's raises under PIL >= 9.5)."""
+    got, want = (cli_outputs[f"{name}_{item}s"] for name in ("torch_b1",
+                                                             "jax"))
+    assert sorted(got) == sorted(want) == ["000000.png", "000001.png"]
+    frames = cli_outputs["frames"]
+    for name, w in want.items():
+        raw = np.asarray(Image.open(os.path.join(frames, name)))
+        assert w.shape == (2 * raw.shape[0], raw.shape[1], 3)
+        assert (w != np.vstack([raw, raw])).any(), name  # boxes drawn
+        np.testing.assert_array_equal(got[name], w, err_msg=name)
 
 
-def test_h5_weights_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        run_network(["m.h5", str(tmp_path), str(tmp_path), "p.mat",
-                     str(tmp_path)])
+def test_h5_weights_raise(cli_outputs):
+    """.h5 weights, which raised before the import was ported: a reference
+    Keras h5 of the fixture's weights (no sidecar: num_classes from the
+    heads) gives the .npz run's txts and .mat files exactly, so the JAX
+    CLI's within the tolerances above."""
+    want = cli_outputs["torch_b1"]
+    got = cli_outputs["torch_h5"]
+    assert sorted(got) == sorted(want) == sorted(cli_outputs["jax"])
+    for fn, (rows, mat) in want.items():
+        assert got[fn][0] == rows, fn
+        for key in ("boxes", "scores", "keypoints3d", "locations"):
+            np.testing.assert_array_equal(got[fn][1][key], mat[key])

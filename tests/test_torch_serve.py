@@ -27,6 +27,8 @@ from ground_plane_polling_tpu.bin.serve import _intake_cap as jax_intake_cap
 from ground_plane_polling_tpu.bin.serve import main as jax_serve
 from ground_plane_polling_tpu.bin.serve import parse_args as jax_parse_args
 from ground_plane_polling_tpu_torch.bin import serve as serve_mod
+from ground_plane_polling_tpu_torch.bin.convert_model import (
+    main as convert_model)
 from ground_plane_polling_tpu_torch.bin.run_network import main as run_network
 from ground_plane_polling_tpu_torch.data import frames
 
@@ -283,10 +285,21 @@ def test_int8_flags_parse_as_jax(argv):
                                                want.int8_percentile)
 
 
-def test_h5_weights_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        serve_mod.main(["m.h5", str(tmp_path), str(tmp_path), "p.mat",
-                        str(tmp_path)])
+def test_h5_weights_raise(split, served, tmp_path):
+    """.h5 weights, which raised before the import was ported: the split's
+    weights as a reference Keras h5 (the port's convert_model; no
+    sidecar, num_classes from the heads) serve the .npz run's txts
+    exactly, so the JAX CLI's within the tolerances above."""
+    h5 = str(tmp_path / "model.h5")
+    convert_model([split["weights"], h5])
+    out = str(tmp_path / "out")
+    total, _, _ = _serve([h5] + _args(split, out)[1:]
+                         + ["--once", "--batch-size", "2"] + SIDES)
+    runs, txts = served
+    assert total == runs["torch"][0]
+    got = _txts(out)
+    assert got == txts["torch"]
+    _assert_txts_close(got, txts["jax"])
 
 
 def test_cuda_is_refused_without_a_card(split, tmp_path):

@@ -1,15 +1,17 @@
 """The port's training orchestration on the CPU: the train-mode KittiLoader
-against the JAX package's (use_native_loader=False, same seed), the
+against the JAX package's (use_native_loader=False in both, same seed), the
 prefetch thread, ReduceLROnPlateau against JAX's, checkpoints (round trip,
 the async saver's copy, pruning, resume), fit's NaN guard, and the
 bin/train CLI on the prepared fixture split."""
 
+import hashlib
 import json
 import os
 import re
 import shutil
 import threading
 import time
+import urllib.error
 from collections import namedtuple
 
 import numpy as np
@@ -24,7 +26,9 @@ from ground_plane_polling_tpu_torch.bin import train as train_cli
 from ground_plane_polling_tpu_torch.data.kitti import KittiDataset
 from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
 from ground_plane_polling_tpu_torch import models
-from ground_plane_polling_tpu_torch.models import init_detector, load_weights
+from ground_plane_polling_tpu_torch.models import (h5_export, h5_import,
+                                                   imagenet, init_detector,
+                                                   load_weights)
 from ground_plane_polling_tpu_torch.training import checkpoint
 from ground_plane_polling_tpu_torch.training.loop import fit
 from ground_plane_polling_tpu_torch.training.schedule import ReduceLROnPlateau
@@ -66,7 +70,7 @@ def mixed_root(tmp_path_factory):
 
 def _loaders(root, **kw):
     port = KittiLoader(KittiDataset(root, "train"), raw_batches=True,
-                       device="cpu", **LOADER, **kw)
+                       device="cpu", use_native_loader=False, **LOADER, **kw)
     jax_ = JaxLoader(JaxDataset(root, "train"), raw_batches=True,
                      use_native_loader=False, **LOADER, **kw)
     return port, jax_
@@ -399,13 +403,59 @@ def test_train_cli_one_epoch_then_resume(cli_split, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    pytest.param(["--backbone-h5", "x.h5"], "A10b", id="flag3-A10b"),
-    pytest.param(["--imagenet-weights"], "does not download",
-                 id="flag4-A17"),
-    pytest.param(["--weights", "x.h5"], "A10b", id="flag5-A10b")])
-def test_train_cli_unported_options_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(["--device", "cpu"] + flag + ["kitti", str(tmp_path)])
+    pytest.param("--backbone-h5", "backbone", id="flag3-A10b"),
+    pytest.param("--imagenet-weights", "backbone", id="flag4-A17"),
+    pytest.param("--weights", "all", id="flag5-A10b")])
+def test_train_cli_unported_options_raise(cli_split, tmp_path, monkeypatch,
+                                          flag, item):
+    """The weight options that raised before the h5 import was ported:
+    --weights x.h5 loads the whole detector from a reference Keras h5,
+    --backbone-h5 lays an h5's backbone over the seeded init (FPN and heads
+    keep it), and --imagenet-weights does the same with the md5-checked
+    file of the weights cache, fetching nothing; without a cached file and
+    without network it raises and names --backbone-h5. The CLI builds the
+    shrunk detector (and the h5 tables take its stages); the model that
+    reaches fit is checked exactly."""
+    monkeypatch.setattr(models, "build_detector",
+                        lambda backbone, num_classes=1, remat=False:
+                        shrunk_torch_model(num_classes, remat))
+    monkeypatch.setitem(h5_import._KNOWN_STAGES, "resnet50", (1, 1, 1, 1))
+    weights, root = cli_split
+    source = load_weights(shrunk_torch_model(), weights)
+    h5 = str(tmp_path / "ResNet-50-model.keras.h5")
+    h5_export.export_reference_h5(source, h5)
+
+    def no_network(url, dest):
+        raise urllib.error.URLError("no route to host")
+
+    monkeypatch.setattr(imagenet, "_fetch", no_network)
+    monkeypatch.setenv("GPP_WEIGHTS_CACHE", str(tmp_path / "cache"))
+    argv = {"--backbone-h5": ["--backbone-h5", h5],
+            "--imagenet-weights": ["--imagenet-weights"],
+            "--weights": ["--weights", h5]}[flag]
+    if flag == "--imagenet-weights":
+        with pytest.raises(RuntimeError, match="backbone-h5"):
+            train_cli.main(["--device", "cpu"] + argv + ["kitti", root])
+        assert os.listdir(tmp_path / "cache") == []  # no partial file left
+        shutil.copyfile(h5, tmp_path / "cache" / os.path.basename(h5))
+        monkeypatch.setitem(imagenet._CHECKSUMS, "resnet50", hashlib.md5(
+            open(h5, "rb").read()).hexdigest())
+    seen = {}
+
+    def fake_fit(model, state, *args, **kwargs):
+        seen["state"] = {k: v.detach().clone()
+                         for k, v in model.state_dict().items()}
+        return state
+
+    monkeypatch.setattr("ground_plane_polling_tpu_torch.training.loop.fit",
+                        fake_fit)
+    train_cli.main(["--device", "cpu", "--no-evaluation"] + argv
+                   + ["kitti", root])
+    want = source.state_dict()
+    init = init_detector(shrunk_torch_model(), 0).state_dict()
+    for key, value in seen["state"].items():
+        ref = want if item == "all" or key.startswith("backbone.") else init
+        torch.testing.assert_close(value, ref[key], rtol=0, atol=0, msg=key)
 
 
 @pytest.mark.parametrize("backbone", ["tiny", "mobilenet224_0.25"])
