@@ -111,7 +111,21 @@ Phases (any failure exits non-zero before the last line):
      composite a frame, the polling kernel launched; (e) bin/debug
      --anchors --resize --random-transform on phase 7's split: one PNG a
      frame.
-Phases 4-11 each drive their path with the launch counts set to 0 and fail
+ 12. the last three options of the detect API, ResNet-50 at full width
+     (FPN 512, seeded, 416x1344, 21,634 planes): (a) fused_decode=False
+     against the fused decode in bf16 at b1 and b4, equal detections
+     within phase 3's tolerances, timed in turns; (b) pack_levels: the
+     raw heads packed against unpacked in float32 (TF32 off) at b1, split
+     and fused, conv sites and kernels a forward, the bf16 call in turns
+     at b1 and b4, and int8 packed with its own calibration (91 conv and
+     quantize launches a call; the conv kernel against its plain version
+     at every shape of the tail canvas, bit for bit); (c) shard_spatial:
+     two rank processes on the one card over gloo (with --dp-cards N, N
+     over NCCL; --phase 12c: only this phase), each with a timeout and
+     joined: the b1 float32 call
+     against one process, each rank's widest conv input against its slab
+     plus halo, and bf16 timed against one process.
+Phases 4-12 each drive their path with the launch counts set to 0 and fail
 if a kernel of the path was not launched.
 
 Prints the kernel table as one JSON line, then as the last line
@@ -121,6 +135,7 @@ Imports nothing of JAX.
 
 import collections
 import contextlib
+import copy
 import io
 import json
 import os
@@ -2221,19 +2236,25 @@ def phase9c_remat(torch, root, smi):
     return result
 
 
-def dp_cards(torch, polling_cuda, smi, world):
-    """--dp-cards: phase 6's and phase 7's splits, then phase 9b over
-    NCCL, one rank a card."""
+def dp_cards(torch, polling_cuda, smi, world, phase=None):
+    """--dp-cards: phase 6's and phase 7's splits, then phase 9b, and
+    phase 12c, over NCCL, one rank a card (`phase`: only that one)."""
     assert torch.cuda.device_count() >= world, torch.cuda.device_count()
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        rng = np.random.RandomState(SEED + 1)
-        cli = {"base": rng.randint(0, 256, (375, 1242, 3)).astype(np.uint8)}
-        evaluated = phase6_evaluate(torch, polling_cuda, tmp, cli)
-        write_train_split(tmp, cli)
-        result = phase9b_ranks(torch, tmp, evaluated["b1"], smi, world,
-                               "nccl")
+        if phase in (None, "9b"):
+            rng = np.random.RandomState(SEED + 1)
+            cli = {"base": rng.randint(0, 256, (375, 1242, 3)).astype(
+                np.uint8)}
+            evaluated = phase6_evaluate(torch, polling_cuda, tmp, cli)
+            write_train_split(tmp, cli)
+            out["data_parallel"] = phase9b_ranks(
+                torch, tmp, evaluated["b1"], smi, world, "nccl")
+        if phase in (None, "12c"):
+            out["shard_spatial"] = phase12c_spatial(
+                torch, polling_cuda, tmp, smi, world, "nccl")
     print(smi)
-    print(json.dumps({"data_parallel": result}))
+    print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2890,6 +2911,387 @@ def phase11_host_extras(torch, polling_cuda, tmp, cli, trained, smi,
     return {"loading_ms": loading, "eval3d": evaluated}
 
 
+# phase 12: the last three options of the JAX detect API
+# the conv sites of ResNet-50 split / fused, packed, and how many of them
+# are the heads' (the trunk and the FPN have 61)
+PACKED_SITES = {False: 91, True: 81}
+HEAD_CONVS = {False: (75, 30), True: (50, 20)}  # unpacked, packed
+PACKED_TAIL = (26, 127)  # the canvas of P4..P7 at 416x1344
+INT8_CALIB_12 = 2  # canvases of 12b's own int8 calibration
+# detections of two paths that must agree: phase 3's tolerances between
+# its --batch 1 and --batch 4 runs, (atol, rtol)
+DETECT_TOLS = {"scores": (1e-6, 0), "boxes": (2e-3, 0), "dims": (2e-3, 0),
+               "keypoints": (0.5, 2e-3), "residuals": (1e-3, 0)}
+SPATIAL_RANKS = 2  # phase 12c: two ranks on the one card, over gloo
+SPATIAL_TIMED = 5  # 12c's timed bf16 calls, after 2 warm-up calls
+
+
+def detect_inputs(torch, rng, b, dev, planes):
+    P_inv = np.linalg.pinv(P2).astype(np.float32)
+    return (torch.from_numpy(rng.randint(0, 256, (b, *CANVAS, 3)).astype(
+                np.uint8)).to(dev),
+            torch.from_numpy(np.tile(P_inv[None], (b, 1, 1))).to(dev),
+            torch.from_numpy(np.tile(planes[None], (b, 1, 1))).to(dev))
+
+
+def compare_detections(got, want, label, net_tol=None):
+    """Labels and orientations equal; the other fields within
+    DETECT_TOLS, or, with `net_tol`, scores, boxes and dims within rtol
+    net_tol and atol net_tol of the field's largest |value|. Returns the
+    largest gap of each field."""
+    got = {k: v.float().cpu().numpy() for k, v in got._asdict().items()
+           if v is not None}
+    want = {k: v.float().cpu().numpy() for k, v in want._asdict().items()
+            if v is not None}
+    for key in ("labels", "orientations"):
+        np.testing.assert_array_equal(got[key], want[key],
+                                      err_msg=f"{label} {key}")
+    gaps = {}
+    for key, (atol, rtol) in DETECT_TOLS.items():
+        if net_tol is not None and key in ("scores", "boxes", "dims"):
+            atol, rtol = net_tol * float(np.abs(want[key]).max()), net_tol
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol,
+                                   err_msg=f"{label} {key}")
+        gaps[key] = float(np.nanmax(np.abs(got[key] - want[key])))
+    return gaps
+
+
+def phase12a_unfused(torch, polling_cuda, model, rng, planes):
+    """fused_decode=False against the fused default, b1 and b4, bf16."""
+    from ground_plane_polling_tpu_torch.inference import make_detect_fn
+
+    from ground_plane_polling_tpu_torch.ops.anchors import anchors_for_shape
+
+    log("phase 12a: the unfused decode (decode of all "
+        f"{len(anchors_for_shape(CANVAS))} anchors, then the filter) against "
+        "the fused one, bf16 at b1 and b4, timed in turns fused, unfused, "
+        "unfused, fused")
+    dev = torch.device("cuda")
+    result = {"polling_launches": 0}
+    for b in (1, 4):
+        args = detect_inputs(torch, rng, b, dev, planes)
+        fns = {name: make_detect_fn(model, CANVAS, with_pose=True,
+                                    device_preprocess=True, device=dev,
+                                    fused_decode=name == "fused")
+               for name in ("fused", "unfused")}
+        outs, times = {}, {}
+        for name in ("fused", "unfused", "unfused", "fused"):
+            polling_cuda.LAUNCHES = 0
+            sec, outs[name] = timed_detect(torch, fns[name], args)
+            assert polling_cuda.LAUNCHES == 13, polling_cuda.LAUNCHES
+            if name == "unfused":
+                result["polling_launches"] += polling_cuda.LAUNCHES
+            times.setdefault(name, []).append(sec * 1e3)
+        scores = outs["fused"].scores.float().cpu().numpy()
+        assert (scores > 0).any(axis=1).all(), scores
+        gaps = compare_detections(outs["unfused"], outs["fused"],
+                                  f"12a b{b}")
+        result[f"b{b}"] = {"ms": times, "gaps": gaps}
+        log(f"  b{b}: ms per call, fused / unfused / unfused / fused: "
+            f"{times['fused'][0]:.3f} / {times['unfused'][0]:.3f} / "
+            f"{times['unfused'][1]:.3f} / {times['fused'][1]:.3f} (host "
+            "clock over 10 synchronized calls after 3); 1 polling launch a "
+            "call; detections equal (labels, orientations) and within phase "
+            "3's tolerances, largest gaps "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    return result
+
+
+def phase12b_packed(torch, polling_cuda, int8_conv_cuda, split, rng,
+                    planes):
+    """pack_levels against unpacked: raw heads in f32 at b1 (split and
+    fused), kernels a forward, the bf16 call in turns at b1 and b4, and
+    int8 packed with its own calibration."""
+    from ground_plane_polling_tpu_torch.data.kitti import BGR_MEAN
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+    from ground_plane_polling_tpu_torch.models import (build_detector,
+                                                       fuse_detector_params)
+    from ground_plane_polling_tpu_torch.models import quantize as tq
+
+    dev = torch.device("cuda")
+    state = split.state_dict()
+    fused_state = fuse_detector_params(state)
+
+    def detector(fuse, pack):
+        net = build_detector("resnet50", fuse_cls_dim=fuse, pack_levels=pack)
+        net.load_state_dict(fused_state if fuse else state)
+        return net
+
+    log(f"phase 12b: pack_levels, float32 with TF32 off at "
+        f"{CANVAS[0]}x{CANVAS[1]} b1: packed against unpacked heads")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(rng.uniform(-128, 128, (1, 3, *CANVAS)).astype(
+        np.float32)).to(dev)
+    result = {}
+    for fuse in (False, True):
+        heads = {}
+        for pack in (False, True):
+            net = place_model(detector(fuse, pack), dev, torch.float32)
+            with torch.inference_mode():
+                heads[pack] = {k: v.cpu().numpy() for k, v in net(x).items()}
+            sites = tq.count_convs(net, x)
+            assert sites == (PACKED_SITES if pack else INT8_SITES)[fuse]
+        for k, ref in heads[False].items():
+            got = heads[True][k]
+            atol = 1e-3 * float(np.abs(ref).max())
+            np.testing.assert_allclose(got, ref, rtol=1e-3, atol=atol,
+                                       err_msg=f"packed head {k}")
+            log(f"  {'fused' if fuse else 'split'} {k}: max |packed - "
+                f"unpacked| {np.abs(got - ref).max():.3e} (rtol 1e-3, atol "
+                f"1e-3 * max|unpacked| = {atol:.3e})")
+        unpacked, packed = HEAD_CONVS[fuse]
+        log(f"  {'fused' if fuse else 'split'}: conv sites "
+            f"{INT8_SITES[fuse]} -> {PACKED_SITES[fuse]}, of them the heads' "
+            f"{unpacked} -> {packed}")
+
+    log("phase 12b': bf16 detect call, unpacked and packed, b1 and b4, timed "
+        "in turns unpacked, packed, packed, unpacked; kernels a forward "
+        "(torch.profiler)")
+    nets = {pack: place_model(detector(False, pack), dev, torch.bfloat16)
+            for pack in (False, True)}
+    mean = torch.as_tensor(BGR_MEAN, device=dev)
+    result["polling_launches"] = 0
+    for b in (1, 4):
+        args = detect_inputs(torch, rng, b, dev, planes)
+        fns = {pack: make_detect_fn(nets[pack], CANVAS, with_pose=True,
+                                    device_preprocess=True, device=dev)
+               for pack in (False, True)}
+        times = {}
+        for pack in (False, True, True, False):
+            polling_cuda.LAUNCHES = 0
+            sec, out = timed_detect(torch, fns[pack], args)
+            assert polling_cuda.LAUNCHES == 13, polling_cuda.LAUNCHES
+            if pack:
+                result["polling_launches"] += polling_cuda.LAUNCHES
+            scores = out.scores.float().cpu().numpy()
+            assert np.isfinite(scores).all()
+            assert (scores > 0).any(axis=1).all(), scores
+            times.setdefault("packed" if pack else "unpacked", []).append(
+                sec * 1e3)
+        xb = (args[0].float() - mean).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            kernels = {("packed" if pack else "unpacked"): len(
+                device_kernels(torch, lambda n=nets[pack]: n(xb), reps=1))
+                for pack in (False, True)}
+        result[f"bf16_b{b}"] = {"ms": times, "kernels": kernels}
+        log(f"  b{b}: ms per call, unpacked / packed / packed / unpacked: "
+            f"{times['unpacked'][0]:.3f} / {times['packed'][0]:.3f} / "
+            f"{times['packed'][1]:.3f} / {times['unpacked'][1]:.3f} (host "
+            "clock over 10 synchronized calls after 3); kernels a forward "
+            f"{kernels['unpacked']} unpacked, {kernels['packed']} packed; "
+            "scores finite, a detection an image, 1 polling launch a call")
+
+    log(f"phase 12b'': int8 packed, calibrated (absmax) on {INT8_CALIB_12} "
+        "canvases: the conv kernel against its plain version at every "
+        f"shape of the {PACKED_TAIL[0]}x{PACKED_TAIL[1]} tail canvas, and "
+        "the int8 detect call")
+    packed = nets[True]
+    canvases = [torch.from_numpy(rng.randint(0, 256, (1, *CANVAS, 3)).astype(
+        np.uint8)).to(dev) for _ in range(INT8_CALIB_12)]
+    scales = tq.collect_scales_uint8(packed, canvases)
+    assert scales.shape == (PACKED_SITES[False],), scales.shape
+    x1 = (canvases[0].float() - mean).permute(0, 3, 1, 2)
+    tail = int8_site_inputs(torch, tq, packed, scales, x1,
+                            keep=lambda k: k[0][2:] == PACKED_TAIL)
+    assert sum(e["n"] for e in tail.values()) == HEAD_CONVS[False][1] // 2
+    rows = phase8a_kernels(torch, int8_conv_cuda, tail, "tail b1")
+    args = detect_inputs(torch, rng, 1, dev, planes)
+    detect = make_detect_fn(packed, CANVAS, with_pose=True,
+                            device_preprocess=True, device=dev,
+                            quant_scales=scales)
+    int8_conv_cuda.CONV_LAUNCHES = int8_conv_cuda.QUANTIZE_LAUNCHES = 0
+    polling_cuda.LAUNCHES = 0
+    sec, out = timed_detect(torch, detect, args)
+    launches = (int8_conv_cuda.CONV_LAUNCHES, int8_conv_cuda.QUANTIZE_LAUNCHES,
+                polling_cuda.LAUNCHES)
+    assert launches == (13 * PACKED_SITES[False], 13 * PACKED_SITES[False],
+                        13), launches
+    scores = out.scores.float().cpu().numpy()
+    assert np.isfinite(scores).all() and (scores > 0).any(axis=1).all()
+    log(f"  int8 packed b1: {sec * 1e3:.3f} ms per call (host clock over 10 "
+        f"synchronized calls after 3); per call {launches[0] // 13} conv, "
+        f"{launches[1] // 13} quantize and {launches[2] // 13} polling "
+        "launches")
+    result["polling_launches"] += launches[2]
+    result["int8"] = {"ms": sec * 1e3, "launches": launches,
+                      "tail_rows": [{k: r[k] for k in (
+                          "key", "n", "conv_ms", "conv_err", "quantize_err",
+                          "conv_bound_ms", "cudnn_ms", "conv_plain_ms",
+                          "plan")} for r in rows]}
+    return result
+
+
+def spatial_worker(rank, port, work, world, backend):
+    """Rank `rank` of phase 12c's `world` ranks over `backend`: the
+    width-sharded detect call at b1, float32 (TF32 off) once, then bf16
+    timed; what it saw goes to work/spatial{rank}.pt."""
+    import torch
+
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+    from ground_plane_polling_tpu_torch.kernels import polling_cuda
+    from ground_plane_polling_tpu_torch.parallel import (data_parallel_mesh,
+                                                         initialize)
+    from ground_plane_polling_tpu_torch.parallel.spatial import (
+        conv_window_bound)
+
+    initialize(f"localhost:{port}", world, rank, backend=backend)
+    mesh = data_parallel_mesh()
+    out = {"device": str(mesh.device)}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 12)
+    planes = synthetic_planes(rng, N_PLANES)
+    args = detect_inputs(torch, rng, 1, mesh.device, planes)
+    model = full_width_model(torch, SEED)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        net = place_model(model, mesh.device, dtype)
+        detect = make_detect_fn(net, CANVAS, with_pose=True,
+                                device_preprocess=True, mesh=mesh,
+                                shard_spatial=True)
+        polling_cuda.LAUNCHES = 0
+        if name == "f32":
+            got = detect(*args)
+            out["f32"] = {k: v.cpu() for k, v in got._asdict().items()
+                          if v is not None}
+            windows = detect.spatial.last.windows
+            widest = max(windows, key=lambda w: w[2])
+            out["windows"] = {
+                "convs": len(windows), "widest": widest,
+                "bound": conv_window_bound(widest[0], world, widest[1]),
+                "within": all(w[2] <= conv_window_bound(w[0], world, w[1])
+                              for w in windows)}
+            out["f32_launches"] = polling_cuda.LAUNCHES
+            continue
+        for _ in range(2):
+            detect(*args)
+        torch.cuda.synchronize()
+        mesh.barrier()
+        polling_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_TIMED):
+            got = detect(*args)
+        torch.cuda.synchronize()
+        out["bf16_ms"] = (time.perf_counter() - t0) / SPATIAL_TIMED * 1e3
+        out["bf16_launches"] = polling_cuda.LAUNCHES
+        out["bf16_scores"] = got.scores.float().cpu()
+    torch.save(out, os.path.join(work, f"spatial{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase12c_spatial(torch, polling_cuda, work, smi, world=SPATIAL_RANKS,
+                     backend="gloo"):
+    """shard_spatial: `world` rank processes, each launched with a timeout
+    and joined, against the single process here (run first, alone on the
+    card)."""
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+
+    where = ("on the one card over gloo (each exchange goes through the "
+             "host)" if backend == "gloo" else "one a card over NCCL")
+    log(f"phase 12c: shard_spatial, ResNet-50 at {CANVAS[0]}x{CANVAS[1]} b1, "
+        f"{world} ranks {where}: float32 (TF32 off) against one process, "
+        "bf16 timed against one process")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 12)
+    planes = synthetic_planes(rng, N_PLANES)
+    args = detect_inputs(torch, rng, 1, dev, planes)
+    model = full_width_model(torch, SEED)
+    want = make_detect_fn(place_model(model, dev, torch.float32), CANVAS,
+                          with_pose=True, device_preprocess=True)(*args)
+    one_ms = timed_detect(torch, make_detect_fn(
+        place_model(model, dev, torch.bfloat16), CANVAS, with_pose=True,
+        device_preprocess=True), args, n_iter=SPATIAL_TIMED)[0] * 1e3
+    del model
+    torch.cuda.empty_cache()
+    port = free_port()
+    env = dict(os.environ, GPP_DIST_INIT_TIMEOUT=str(GROUP_TIMEOUT))
+    logs = [open(os.path.join(work, f"spatial{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--port", str(port), "--work", work, "--dp-cards", str(world),
+         "--backend", backend, "--phase", "12c"],
+        env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" \
+            + text[-4000:]
+    ranks = [torch.load(os.path.join(work, f"spatial{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    result = {"one_process_bf16_ms": one_ms}
+    DetectionOutput = type(want)
+    for r, got in enumerate(ranks):
+        gaps = compare_detections(DetectionOutput(**got["f32"]), want,
+                                  f"12c rank {r}", net_tol=1e-4)
+        w = got["windows"]
+        assert w["within"], w
+        assert got["f32_launches"] == 1, got["f32_launches"]
+        assert got["bf16_launches"] == SPATIAL_TIMED, got["bf16_launches"]
+        scores = got["bf16_scores"].numpy()
+        assert np.isfinite(scores).all() and (scores > 0).any(), scores
+        result[f"rank{r}"] = {"gaps": gaps, "windows": w,
+                              "bf16_ms": got["bf16_ms"],
+                              "polling_launches": got["f32_launches"]
+                              + got["bf16_launches"]}
+        log(f"  rank {r} on {got['device']}: f32 detections equal to one "
+            "process's (labels, orientations; scores, boxes, dims within "
+            "rtol 1e-4 and 1e-4 of max; the polled fields within phase 3's "
+            "tolerances), largest gaps "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+            + f"; widest conv input {w['widest'][2]} columns (map "
+            f"{w['widest'][0]} wide, kernel {w['widest'][1]}) against its "
+            f"slab plus halo {w['bound']}, every one of {w['convs']} convs "
+            f"within its own; bf16 {got['bf16_ms']:.3f} ms per "
+            f"call (host clock over {SPATIAL_TIMED} synchronized calls) "
+            f"against one process's {one_ms:.3f}; 1 polling launch a call")
+    log(f"  {smi}; phase 12c wall: {time.perf_counter() - t0:.2f} s")
+    return result
+
+
+def phase12_options(torch, polling_cuda, int8_conv_cuda, tmp, smi):
+    """The unfused decode, pack_levels and shard_spatial at full width."""
+    from ground_plane_polling_tpu_torch.inference import place_model
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 12)
+    planes = synthetic_planes(rng, N_PLANES)
+    split = full_width_model(torch, SEED)
+    model = place_model(copy.deepcopy(split), torch.device("cuda"),
+                        torch.bfloat16)
+    result = {"12a": phase12a_unfused(torch, polling_cuda, model, rng,
+                                      planes)}
+    del model
+    t = time.perf_counter()
+    result["12b"] = phase12b_packed(torch, polling_cuda, int8_conv_cuda,
+                                    split, rng, planes)
+    log(f"  phase 12a wall {t - t_phase:.2f} s, 12b "
+        f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()
+    result["12c"] = phase12c_spatial(torch, polling_cuda, tmp, smi)
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"  {smi}; phase 12 wall: {result['wall_s']:.2f} s")
+    return result
+
+
 def load_int8_tree(root, alias):
     """(kernels.int8_conv_cuda, kernels.int8_depthwise_cuda or None) of the
     package in checkout `root`, imported under the top-level name `alias`
@@ -2945,14 +3347,17 @@ def main(argv=None):
                    "_parent_tree/): phases 8a and 10c also time its int8 "
                    "kernels in turns with this tree's at every shape")
     p.add_argument("--dp-cards", type=int, default=None, metavar="N",
-                   help="only phase 9b, over NCCL with one rank on each of "
-                   "N cards (a machine with N cards), with the DDP step "
-                   "timed against one card's")
+                   help="only phases 9b and 12c, over NCCL with one rank on "
+                   "each of N cards (a machine with N cards), with the DDP "
+                   "step and the width-sharded b1 detect call timed "
+                   "against one card's")
     # phase 9b's rank processes (the script starts them itself)
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--work", default=None, help=argparse.SUPPRESS)
     p.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
+    p.add_argument("--phase", default=None, choices=("9b", "12c"),
+                   help="with --dp-cards, only that phase")
     argv = sys.argv[1:] if argv is None else argv
     # phase 10d's CLI processes: --cli MODULE ARGS... (the script starts
     # them itself)
@@ -2964,8 +3369,9 @@ def main(argv=None):
     if cli_args is not None:
         return cli_worker(cli_args[0], cli_args[1:])
     if args.rank is not None:
-        return rank_worker(args.rank, args.port, args.work, args.dp_cards,
-                           args.backend)
+        worker = spatial_worker if args.phase == "12c" else rank_worker
+        return worker(args.rank, args.port, args.work, args.dp_cards,
+                      args.backend)
     from concurrent.futures import ThreadPoolExecutor
 
     from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
@@ -3025,7 +3431,7 @@ def main(argv=None):
     assert igmma and all(v > 0 for v in igmma.values()), igmma
 
     if args.dp_cards:
-        return dp_cards(torch, polling_cuda, smi, args.dp_cards)
+        return dp_cards(torch, polling_cuda, smi, args.dp_cards, args.phase)
     kernel = phase1_kernel(torch, polling_cuda, twin, polling_cases)
     launches, per_call, _ = phase2_main_path(torch, polling_cuda)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3042,6 +3448,8 @@ def main(argv=None):
                                       other_dw)
         phase11_host_extras(torch, polling_cuda, tmp, cli, trained, smi,
                             native_builds)
+        options = phase12_options(torch, polling_cuda, int8_conv_cuda, tmp,
+                                  smi)
     log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
         "phase 0's device query")
     pc = int8["per_call"]
@@ -3067,6 +3475,23 @@ def main(argv=None):
         # phase 9b, each rank: bin/train's sweep, bin/evaluate float and
         # --int8 (polling, int8 conv, quantize)
         "launches_data_parallel": parallel["9b"]["launches"],
+        # phase 12, counted on each path alone: the unfused calls at b1
+        # and b4, the packed calls (bf16 at b1 and b4, int8 at b1), and
+        # each shard_spatial rank's f32 call and timed bf16 calls
+        "launches_phase12": {
+            "unfused_decode": options["12a"]["polling_launches"],
+            "pack_levels": options["12b"]["polling_launches"],
+            "shard_spatial": [options["12c"][f"rank{r}"]["polling_launches"]
+                              for r in range(SPATIAL_RANKS)]},
+        "phase12_ms": {
+            "fused_vs_unfused": {b: options["12a"][b]["ms"]
+                                 for b in ("b1", "b4")},
+            "unpacked_vs_packed": {b: options["12b"][f"bf16_{b}"]["ms"]
+                                   for b in ("b1", "b4")},
+            "shard_spatial_bf16_b1": {
+                "one_process": options["12c"]["one_process_bf16_ms"],
+                **{f"rank{r}": options["12c"][f"rank{r}"]["bf16_ms"]
+                   for r in range(SPATIAL_RANKS)}}},
     }, {
         "name": "int8_quantize",
         "route": "cuda",
@@ -3103,6 +3528,11 @@ def main(argv=None):
         "split_sites": pc["split_sites"],
         "sass_igmma": sum(igmma.values()),
         "against": pc.get("turns"),
+        # phase 12b: the int8 detect call of the packed model (91 sites),
+        # and every conv shape of its 26 x 127 tail canvas against its
+        # plain version
+        "packed_launches": options["12b"]["int8"]["launches"][:2],
+        "packed_tail": options["12b"]["int8"]["tail_rows"],
     }, {
         "name": "int8_depthwise",
         "route": "cuda",

@@ -2,10 +2,13 @@
 ground_plane_polling_tpu/inference.py).
 
   uint8 BGR canvas -> cast + mean subtraction on the device -> backbone ->
-  FPN -> heads (every conv int8 with `quant_scales`, models/quantize.py)
-  -> fused filter (pre-NMS top-k, sign-aware decode of the candidates,
-  greedy NMS, top-k) -> ground-plane polling (the CUDA kernel on the card,
-  its twin on the CPU) [-> pose solve].
+  FPN -> heads (every conv int8 with `quant_scales`, models/quantize.py;
+  with `shard_spatial`, each rank's columns of the image,
+  parallel/spatial.py) -> filter: fused (pre-NMS top-k, sign-aware decode
+  of the candidates, greedy NMS, top-k) or, with `fused_decode=False`,
+  the decode of every anchor and the same selection -> ground-plane
+  polling (the CUDA kernel on the card, its twin on the CPU) [-> pose
+  solve].
 
 Outputs mirror the JAX package: boxes, dims, scores, labels, orientations,
 keypoints, keyplanes, residuals, padded to `max_detections` with -1, plus
@@ -29,12 +32,15 @@ from .kernels import polling_cuda
 from .models import build_detector, init_detector, load_state, read_weights
 from .models.quantize import collect_scales, quantize_apply
 from .ops import anchors as anchor_ops
-from .ops.filtering import filter_detections_fused_batch
+from .ops import box_coder
+from .ops.filtering import (filter_detections_batch,
+                            filter_detections_fused_batch)
 from .ops.pose import solve_pose
 from .parallel.mesh import check_mesh
+from .parallel.spatial import SpatialModel
 
-__all__ = ["DetectionOutput", "make_detect_fn", "place_model",
-           "require_device", "GPPDetector"]
+__all__ = ["DetectionOutput", "decode_predictions", "make_detect_fn",
+           "place_model", "require_device", "GPPDetector"]
 
 
 class DetectionOutput(NamedTuple):
@@ -49,6 +55,24 @@ class DetectionOutput(NamedTuple):
     locations: Optional[torch.Tensor] = None  # (B, M, 3) if with_pose
     angles: Optional[torch.Tensor] = None     # (B, M, 3) if with_pose
     pose_dims: Optional[torch.Tensor] = None  # (B, M, 3) if with_pose
+
+
+def decode_predictions(raw, anchors, num_classes: int):
+    """Raw head outputs -> decoded boxes (B, N, 12) and dims (B, N, 3C) of
+    every anchor. The xm/xt side comes from the argmax of the whole 8C
+    classification row (first index on ties): a score in the first 4C
+    columns means left of the anchor centre."""
+    cls = raw["classification"]
+    if cls.shape[-1] != 8 * num_classes:
+        raise ValueError(
+            f"classification width {cls.shape[-1]} != 8*num_classes "
+            f"({8 * num_classes}) — wrong num_classes for this model")
+    half = cls.shape[-1] // 2
+    sign = torch.where(cls.argmax(dim=-1) < half, -1.0, 1.0).to(
+        raw["regression"].dtype)
+    boxes = box_coder.decode_boxes(anchors[None], raw["regression"], sign)
+    dims = box_coder.decode_dims(raw["regression_dim"])
+    return boxes, dims
 
 
 def make_detect_fn(
@@ -84,16 +108,24 @@ def make_detect_fn(
     batch, runs its rows on its device and all-gathers the outputs, so
     every rank returns the whole batch's outputs. The batch must divide by
     the mesh's size.
+
+    `fused_decode=False` decodes every anchor (`decode_predictions`), then
+    filters (ops.filtering.filter_detections_batch): the reference's
+    filter layer, literally; the default decodes only the pre-NMS
+    candidates, with the same outputs.
+
+    `shard_spatial` (requires `mesh`): the image WIDTH is split over the
+    ranks instead of the batch (parallel/spatial.py). Every rank passes
+    the same full batch, of any size; each computes its columns of every
+    map through the backbone, the FPN and the head towers, with the
+    columns that its convs, pools and upsampling read across taken from
+    their owners; the head output maps are gathered whole, and the
+    filter, polling and pose run on every rank, which returns the whole
+    outputs. A model built with `pack_levels` runs its heads per level
+    here (the same outputs).
     """
-    if not fused_decode:
-        raise NotImplementedError(
-            "fused_decode=False: the unfused decode is not ported "
-            "(ROADMAP A4 drops it)")
-    if shard_spatial:
-        raise NotImplementedError(
-            "shard_spatial: splitting one image's width over devices rests "
-            "on XLA's SPMD partitioner, which torch has no counterpart of; "
-            "not ported (ROADMAP A15)")
+    if shard_spatial and mesh is None:
+        raise ValueError("shard_spatial requires a mesh")
     check_mesh(mesh)
     net = model if quant_scales is None else quantize_apply(model,
                                                             quant_scales)
@@ -102,6 +134,10 @@ def make_detect_fn(
                   else mesh.device)
     device = torch.device(device)
     image_shape = (int(image_shape[0]), int(image_shape[1]))
+    columns = slice(None)
+    if shard_spatial:
+        net = SpatialModel(net, mesh, image_shape)
+        columns = net.columns()
     anchors = torch.as_tensor(anchor_ops.anchors_for_shape(image_shape),
                               device=device)
     mean = torch.as_tensor(BGR_MEAN, device=device)
@@ -118,21 +154,28 @@ def make_detect_fn(
 
     @torch.inference_mode()
     def detect(images, P_inv, planes) -> DetectionOutput:
-        if mesh is not None:  # this rank's rows, uploaded alone
-            rows = mesh.rows(len(images))
-            images, P_inv, planes = images[rows], P_inv[rows], planes[rows]
-        images = torch.as_tensor(images, device=device)
-        P_inv = torch.as_tensor(P_inv, dtype=torch.float32, device=device)
-        planes = torch.as_tensor(planes, dtype=torch.float32, device=device)
         if tuple(images.shape[1:3]) != image_shape:
             raise ValueError(f"images {tuple(images.shape)} do not match the "
                              f"detect function's shape {image_shape}")
+        if mesh is not None and not shard_spatial:
+            # this rank's rows, uploaded alone
+            rows = mesh.rows(len(images))
+            images, P_inv, planes = images[rows], P_inv[rows], planes[rows]
+        # this rank's columns under shard_spatial, uploaded alone
+        images = torch.as_tensor(images[:, :, columns], device=device)
+        P_inv = torch.as_tensor(P_inv, dtype=torch.float32, device=device)
+        planes = torch.as_tensor(planes, dtype=torch.float32, device=device)
         if device_preprocess:
             images = images.to(torch.float32) - mean
         raw = net(images.permute(0, 3, 1, 2))
-        det = filter_detections_fused_batch(
-            anchors, raw["regression"], raw["regression_dim"],
-            raw["classification"], **filter_kwargs)
+        if fused_decode:
+            det = filter_detections_fused_batch(
+                anchors, raw["regression"], raw["regression_dim"],
+                raw["classification"], **filter_kwargs)
+        else:
+            boxes, dims = decode_predictions(raw, anchors, num_classes)
+            det = filter_detections_batch(
+                boxes, dims, raw["classification"], **filter_kwargs)
         poll = polling_cuda.fit_road_planes(
             det.boxes, det.dims, det.orientations, P_inv, planes)
         out = DetectionOutput(
@@ -146,8 +189,10 @@ def make_detect_fn(
                               det.dims)
             out = out._replace(locations=pose.locations, angles=pose.angles,
                                pose_dims=pose.dimensions)
-        return out if mesh is None else _gather(out, mesh)
+        return out if mesh is None or shard_spatial else _gather(out, mesh)
 
+    # the SpatialModel of shard_spatial (its last call's conv windows)
+    detect.spatial = net if shard_spatial else None
     return detect
 
 

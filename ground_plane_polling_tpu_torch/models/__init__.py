@@ -30,13 +30,15 @@ def backbone_registry() -> dict:
 
 def build_detector(backbone: str = "resnet50", num_classes: int = 1,
                    feature_size: int = 512, fuse_cls_dim: bool = False,
-                   remat: bool = False) -> GPPRetinaNet:
+                   remat: bool = False,
+                   pack_levels: bool = False) -> GPPRetinaNet:
     """The detector for a backbone name, on the CPU in float32; load or
     init weights, then move it with `.to(device, dtype)`. `fuse_cls_dim`
     runs the classification and dimension heads as one block-diagonal tower
     (inference only; `load_weights` converts split weights). `remat`
     rematerializes the backbone's blocks on the backward pass (ResNet
-    family only)."""
+    family only). `pack_levels` runs each head on P3 and on one canvas of
+    P4..P7 (models/retinanet.py); the parameters are the same."""
     reg = backbone_registry()
     if backbone not in reg:
         raise ValueError(
@@ -49,4 +51,4 @@ def build_detector(backbone: str = "resnet50", num_classes: int = 1,
         net = reg[backbone]()
     return GPPRetinaNet(net, backbone_channels=net.channels,
                         num_classes=num_classes, feature_size=feature_size,
-                        fuse_cls_dim=fuse_cls_dim)
+                        fuse_cls_dim=fuse_cls_dim, pack_levels=pack_levels)

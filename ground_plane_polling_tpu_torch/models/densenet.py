@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import FrozenBatchNorm
-from .resnet import same_pad
+from . import width
 
 __all__ = ["DenseNetBackbone", "REGISTRY"]
 
@@ -72,7 +72,7 @@ class DenseNetBackbone(nn.Module):
     def forward(self, x):
         x = x.to(self.stem_conv.weight.dtype)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = width.pool2d(x, "max", 3, 2, padding=1)
         feats = []
         for b, n in enumerate(self.block_sizes):
             for i in range(n):
@@ -81,7 +81,7 @@ class DenseNetBackbone(nn.Module):
             if b < len(self.block_sizes) - 1:
                 x = F.relu(getattr(self, f"trans{b + 1}_bn")(x))
                 x = getattr(self, f"trans{b + 1}_conv")(x)
-                x = F.avg_pool2d(same_pad(x, 2, 2), 2, stride=2)
+                x = width.pool2d(x, "avg", 2, 2)
         return feats[1], feats[2], feats[3]
 
 

@@ -4,30 +4,20 @@ NCHW (port of ground_plane_polling_tpu/models/fpn.py).
 P6 and P7 are 3x3 stride-2 convs with Flax SAME padding (`SameConv2d`:
 `same_pad`, then the conv, in one module, so that the conv's input is the
 unpadded map, as in the JAX package's conv; int8 calibration reads it).
-Upsampling is nearest-neighbour to the lateral's size: an exact 2x repeat
-on canvases padded to 32, and otherwise torch's 'nearest-exact'
-(half-pixel centres, which is what JAX's image.resize 'nearest'
-computes).
+Upsampling is nearest-neighbour to the lateral's size (`upsample_to`,
+models/width.py): an exact 2x repeat on canvases padded to 32, and
+otherwise torch's 'nearest-exact' (half-pixel centres, which is what
+JAX's image.resize 'nearest' computes).
 """
 
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import same_pad
+from .width import same_pad, upsample_to
 
 __all__ = ["FPN", "SameConv2d", "same_conv", "upsample_to"]
-
-
-def upsample_to(x: torch.Tensor, target_hw) -> torch.Tensor:
-    """Nearest-neighbour resize of NCHW `x` to (target_h, target_w)."""
-    h, w = x.shape[2], x.shape[3]
-    th, tw = int(target_hw[0]), int(target_hw[1])
-    if th == 2 * h and tw == 2 * w:
-        return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-    return F.interpolate(x, size=(th, tw), mode="nearest-exact")
 
 
 class SameConv2d(nn.Conv2d):

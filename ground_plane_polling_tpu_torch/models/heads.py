@@ -9,9 +9,15 @@ ground_plane_polling_tpu/models/heads.py).
     with block-diagonal kernels, exactly the two split heads;
     `fuse_cls_dim_params` converts split weights.
 
-Each head returns (B, H*W*A, K) float32 per level. The NCHW map is permuted
-to NHWC before the reshape, so anchors come out in (h, w, anchor) order,
-matching ops.anchors.anchors_for_shape.
+Each head returns (B, H*W*A, K) float32 per level: `forward` is
+`finalize(raw(x))`. `raw(x, mask)` runs the tower and the out conv on one
+map and gives the raw NCHW output map; with a `mask` (a packed canvas of
+levels, models/retinanet.py) the gap pixels are re-zeroed after every
+tower ReLU, so that each level's border reads zeros as in its own SAME
+conv (the out conv is not masked: its gap outputs are sliced away).
+`finalize` flattens a map (permuted to NHWC before the reshape, so anchors
+come out in (h, w, anchor) order, matching ops.anchors.anchors_for_shape)
+and casts it to float32, with the sigmoid for classification.
 """
 
 from __future__ import annotations
@@ -44,10 +50,15 @@ class _Head(nn.Module):
         self.add_module(f"{self.prefix}_out",
                         nn.Conv2d(width, out_ch, 3, padding=1))
 
-    def raw(self, x):
+    def raw(self, x, mask=None):
         for i in range(4):
             x = F.relu(getattr(self, f"{self.prefix}_{i}")(x))
+            if mask is not None:
+                x = x * mask
         return getattr(self, f"{self.prefix}_out")(x)
+
+    def forward(self, x):
+        return self.finalize(self.raw(x))
 
 
 class ClassificationHead(_Head):
@@ -58,9 +69,8 @@ class ClassificationHead(_Head):
         super().__init__(cin, width, num_anchors * 8 * num_classes)
         self.per_anchor = 8 * num_classes
 
-    def forward(self, x):
-        logits = _flatten_anchors(self.raw(x), self.per_anchor)
-        return torch.sigmoid(logits.float())
+    def finalize(self, x):
+        return torch.sigmoid(_flatten_anchors(x, self.per_anchor).float())
 
 
 class BoxRegressionHead(_Head):
@@ -69,8 +79,8 @@ class BoxRegressionHead(_Head):
     def __init__(self, cin: int, num_anchors: int = 12, width: int = 512):
         super().__init__(cin, width, num_anchors * 12)
 
-    def forward(self, x):
-        return _flatten_anchors(self.raw(x), 12).float()
+    def finalize(self, x):
+        return _flatten_anchors(x, 12).float()
 
 
 class DimRegressionHead(_Head):
@@ -81,8 +91,8 @@ class DimRegressionHead(_Head):
         super().__init__(cin, width, num_anchors * 3 * num_classes)
         self.per_anchor = 3 * num_classes
 
-    def forward(self, x):
-        return _flatten_anchors(self.raw(x), self.per_anchor).float()
+    def finalize(self, x):
+        return _flatten_anchors(x, self.per_anchor).float()
 
 
 class FusedClsDimHead(_Head):
@@ -104,9 +114,8 @@ class FusedClsDimHead(_Head):
         self.cls_ch, self.cls_width = cls_ch, cls_width
         self.num_classes = num_classes
 
-    def forward(self, x):
-        out = self.raw(x)
-        cls_map, dim_map = out[:, :self.cls_ch], out[:, self.cls_ch:]
+    def finalize(self, x):
+        cls_map, dim_map = x[:, :self.cls_ch], x[:, self.cls_ch:]
         classification = torch.sigmoid(
             _flatten_anchors(cls_map, 8 * self.num_classes).float())
         return (classification,

@@ -215,14 +215,17 @@ class QuantizedModel:
             self._weights[conv] = hit
         return hit[1], hit[2]
 
-    def _conv(self, site, conv, x):
+    def _conv(self, site, conv, x, pad=None):
+        """Conv site `site` int8 on x, zero-padded by `pad` ((top, bottom),
+        (left, right); default: the conv's own padding of x)."""
         if site >= len(self.scales):
             raise ValueError(f"{len(self.scales)} int8 scales for a forward "
                              "with more conv sites")
         s_x = float(self.scales[site])
         w8, s_w = self.int8_weight(conv)
-        args = (s_w, conv.bias, conv.stride[0], conv_padding(conv, x),
-                conv.weight.dtype)
+        if pad is None:
+            pad = conv_padding(conv, x)
+        args = (s_w, conv.bias, conv.stride[0], pad, conv.weight.dtype)
         if conv.groups != 1:  # one launch quantizes x and convolves
             return int8_depthwise_cuda.quantize_depthwise2d(x, s_x, w8, *args)
         return int8_conv_cuda.conv2d(int8_conv_cuda.quantize(x, s_x), w8, s_x,

@@ -5,7 +5,7 @@ ground_plane_polling_tpu/models/resnet.py). Returns C3, C4, C5 (strides 8, 16,
 Layout details that must match the JAX package for imported weights:
   * the stem pads an explicit 3 pixels before its 7x7 stride-2 conv;
   * the stem max-pool is Flax SAME at stride 2, which pads (0, 1) on an even
-    size and (1, 1) on an odd one, with -inf (`same_pad`);
+    size and (1, 1) on an odd one, with -inf (models/width.py);
   * in a bottleneck the stride sits on the 1x1 conv1 and on the 1x1
     projection, not on the 3x3.
 
@@ -24,7 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from . import width
 from .common import FrozenBatchNorm
+from .width import same_pad, same_padding
 
 __all__ = ["ResNetBackbone", "RESNET_STAGES", "same_pad", "same_padding"]
 
@@ -33,27 +35,6 @@ RESNET_STAGES = {
     "resnet101": (3, 4, 23, 3),
     "resnet152": (3, 8, 36, 3),
 }
-
-
-def same_padding(h: int, w: int, kernel: int, stride: int):
-    """((top, bottom), (left, right)) of XLA's SAME padding for a `kernel`
-    window at `stride` on an h x w map: the total padding
-    max((ceil(n/s) - 1) s + k - n, 0) is split with the extra pixel after
-    (bottom/right)."""
-    pads = []
-    for n in (h, w):
-        out = -(-n // stride)
-        total = max((out - 1) * stride + kernel - n, 0)
-        pads.append((total // 2, total - total // 2))
-    return tuple(pads)
-
-
-def same_pad(x: torch.Tensor, kernel: int, stride: int,
-             value: float = 0.0) -> torch.Tensor:
-    """Pad NCHW `x` as XLA's SAME does (`same_padding`)."""
-    (top, bottom), (left, right) = same_padding(x.shape[2], x.shape[3],
-                                                kernel, stride)
-    return F.pad(x, (left, right, top, bottom), value=value)
 
 
 def _conv(cin, cout, k, stride=1, padding=0):
@@ -113,7 +94,7 @@ class ResNetBackbone(nn.Module):
     def forward(self, x):
         x = x.to(self.conv1.weight.dtype)  # the compute dtype of the weights
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(same_pad(x, 3, 2, float("-inf")), 3, stride=2)
+        x = width.pool2d(x, "max", 3, 2)
         outputs = []
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):

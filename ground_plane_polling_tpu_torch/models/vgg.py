@@ -12,7 +12,7 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import same_pad
+from . import width
 
 __all__ = ["VGGBackbone", "REGISTRY"]
 
@@ -41,7 +41,7 @@ class VGGBackbone(nn.Module):
         for b, n in enumerate(self.blocks):
             for i in range(n):
                 x = F.relu(getattr(self, f"block{b + 1}_conv{i + 1}")(x))
-            x = F.max_pool2d(same_pad(x, 2, 2, float("-inf")), 2, stride=2)
+            x = width.pool2d(x, "max", 2, 2)
             feats.append(x)
         return feats[2], feats[3], feats[4]
 

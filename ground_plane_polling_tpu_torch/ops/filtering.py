@@ -1,14 +1,22 @@
-"""Detection filtering with decode deferred past candidate selection (port of
-ground_plane_polling_tpu/ops/filtering.py::filter_detections_fused_batch).
+"""Detection filtering (port of ground_plane_polling_tpu/ops/filtering.py),
+two ways that give the same detections:
+
+  * `filter_detections_fused_batch` (the detect call's default): decode
+    deferred past candidate selection, so only the pre-NMS top-k
+    candidates of each set are decoded;
+  * `filter_detections_batch` / `filter_detections`: the unfused path, over
+    the decoded boxes and dims of every anchor (inference.py's
+    `decode_predictions`), which mirrors the reference's filter layer.
 
 Per image and per candidate set (class x orientation mode): score threshold,
-pre-NMS top-k, sign-aware decode of the candidates only, exact greedy NMS,
-then a global top-`max_detections` over the pooled sets, padded with -1.
-The batch dimension is written out: every step runs on (B, ...) tensors.
+pre-NMS top-k, exact greedy NMS, then a global top-`max_detections` over
+the pooled sets, padded with -1. The batch dimension is written out: every
+step runs on (B, ...) tensors.
 
 Tie-breaking follows lax.top_k (lower index first) through a stable
 descending sort. Greedy NMS is the fixpoint iteration of the JAX package;
 in eager PyTorch its convergence test is one host sync per round.
+`greedy_nms_serial` is its plain sequential reference.
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ import torch
 from . import box_coder
 from .overlap import iou_matrix
 
-__all__ = ["Detections", "greedy_nms", "filter_detections_fused_batch"]
+__all__ = ["Detections", "greedy_nms", "greedy_nms_serial",
+           "filter_detections", "filter_detections_batch",
+           "filter_detections_fused_batch"]
 
 _NEG_INF = float("-inf")
 
@@ -81,6 +91,32 @@ def greedy_nms(boxes4, scores, max_out: int, iou_threshold: float):
     return idx, valid, score
 
 
+def greedy_nms_serial(boxes4, scores, max_out: int, iou_threshold: float):
+    """Exact greedy NMS as the sequential selection loop: the plain
+    reference of `greedy_nms` (the JAX package's _greedy_nms_serial), which
+    the tests hold it against. Each round takes the best remaining
+    candidate (first index on ties) and suppresses what overlaps it.
+
+    Args and returns as greedy_nms; an empty slot has valid False, index 0
+    and score -inf."""
+    b, k = scores.shape
+    work = scores.clone()
+    rows = torch.arange(b, device=scores.device)
+    idx = torch.zeros(b, max_out, dtype=torch.long, device=scores.device)
+    valid = torch.zeros(b, max_out, dtype=torch.bool, device=scores.device)
+    score = scores.new_full((b, max_out), _NEG_INF)
+    for i in range(min(max_out, k)):
+        j = work.argmax(dim=1)
+        s = work[rows, j]
+        ok = s > _NEG_INF
+        ious = iou_matrix(boxes4[rows, j][:, None], boxes4)[:, 0]
+        work = torch.where(ok[:, None] & (ious > iou_threshold), _NEG_INF,
+                           work)
+        work[rows, j] = _NEG_INF
+        idx[:, i], valid[:, i], score[:, i] = j, ok, s
+    return idx, valid, score
+
+
 def _candidate_sets(cls, num_classes, class_specific, orientation_specific):
     """Score / label / orientation per set: each (B, N); cls (B, N, C, 4)."""
     b, n, c, _ = cls.shape
@@ -108,25 +144,12 @@ def _candidate_sets(cls, num_classes, class_specific, orientation_specific):
              torch.gather(best_orient, 2, lab[..., None])[..., 0])]
 
 
-def filter_detections_fused_batch(
-    anchors,
-    deltas,
-    dims_raw,
-    classification,
-    num_classes: int = 1,
-    class_specific: bool = True,
-    orientation_specific: bool = False,
-    nms: bool = True,
-    score_threshold: float = 0.05,
-    max_detections: int = 100,
-    nms_threshold: float = 0.5,
-    pre_nms_top_k: int = 1024,
-) -> Detections:
-    """Args
-      anchors: (N, 4); deltas: (B, N, 12) raw regression; dims_raw: (B, N, 3C)
-      raw dim regression; classification: (B, N, 8C) sigmoid scores
-      (layout [sign0 | sign1], each half indexed 4*c + o).
-    """
+def _filter(classification, candidate_boxes, class_dims, num_classes,
+            class_specific, orientation_specific, nms, score_threshold,
+            max_detections, nms_threshold, pre_nms_top_k) -> Detections:
+    """The filter over (B, N, 8C) sigmoid scores, given how to read boxes:
+    candidate_boxes(top_idx (B, K)) -> decoded boxes (B, K, 12), and
+    class_dims(anchor (B, M), label (B, M)) -> decoded dims (B, M, 3)."""
     b, n, _ = classification.shape
     c = num_classes
     if classification.shape[-1] != 8 * c:
@@ -139,13 +162,7 @@ def filter_detections_fused_batch(
     def run_set(scores, labels, orients):
         masked = torch.where(scores > score_threshold, scores, _NEG_INF)
         top_scores, top_idx = _top_k(masked, k)
-        # decode the candidates only; the sign half comes from the argmax
-        # of the full classification row (first index on ties)
-        cls_rows = _take(classification, top_idx)
-        sign = torch.where(cls_rows.argmax(dim=-1) < 4 * c, -1.0, 1.0).to(
-            deltas.dtype)
-        cand_boxes = box_coder.decode_boxes(
-            anchors[top_idx], _take(deltas, top_idx), sign)
+        cand_boxes = candidate_boxes(top_idx)
         if nms:
             sel, valid, sel_scores = greedy_nms(
                 cand_boxes[..., :4], top_scores, max_detections,
@@ -178,15 +195,97 @@ def filter_detections_fused_batch(
 
     sel_anchor = torch.gather(idx, 1, top)
     sel_label = torch.gather(label, 1, top)
-    dims_all = _take(dims_raw, sel_anchor).reshape(b, max_detections, c, 3)
-    dims_sel = box_coder.decode_dims(
-        torch.gather(dims_all, 2, sel_label.long()[:, :, None, None].expand(
-            b, max_detections, 1, 3))[:, :, 0])
     return Detections(
         boxes=torch.where(keep[..., None], _take(cand_boxes, top), -1.0),
-        dims=torch.where(keep[..., None], dims_sel, -1.0),
+        dims=torch.where(keep[..., None], class_dims(sel_anchor, sel_label),
+                         -1.0),
         scores=torch.where(keep, top_score, -1.0),
         labels=torch.where(keep, sel_label, -1).to(torch.int32),
         orientations=torch.where(keep, torch.gather(orient, 1, top),
                                  -1).to(torch.int32),
     )
+
+
+def _class_rows(dims, anchor, label, num_classes):
+    """dims (B, N, 3C) -> the (B, M, 3) triple of each (anchor, label)."""
+    b, m = anchor.shape
+    rows = _take(dims, anchor).reshape(b, m, num_classes, 3)
+    return torch.gather(rows, 2, label.long()[:, :, None, None].expand(
+        b, m, 1, 3))[:, :, 0]
+
+
+def filter_detections_fused_batch(
+    anchors,
+    deltas,
+    dims_raw,
+    classification,
+    num_classes: int = 1,
+    class_specific: bool = True,
+    orientation_specific: bool = False,
+    nms: bool = True,
+    score_threshold: float = 0.05,
+    max_detections: int = 100,
+    nms_threshold: float = 0.5,
+    pre_nms_top_k: int = 1024,
+) -> Detections:
+    """Args
+      anchors: (N, 4); deltas: (B, N, 12) raw regression; dims_raw: (B, N, 3C)
+      raw dim regression; classification: (B, N, 8C) sigmoid scores
+      (layout [sign0 | sign1], each half indexed 4*c + o).
+    """
+    c = num_classes
+
+    def candidate_boxes(top_idx):
+        # decode the candidates only; the sign half comes from the argmax
+        # of the full classification row (first index on ties)
+        cls_rows = _take(classification, top_idx)
+        sign = torch.where(cls_rows.argmax(dim=-1) < 4 * c, -1.0, 1.0).to(
+            deltas.dtype)
+        return box_coder.decode_boxes(anchors[top_idx],
+                                      _take(deltas, top_idx), sign)
+
+    def class_dims(anchor, label):
+        return box_coder.decode_dims(_class_rows(dims_raw, anchor, label, c))
+
+    return _filter(classification, candidate_boxes, class_dims, c,
+                   class_specific, orientation_specific, nms,
+                   score_threshold, max_detections, nms_threshold,
+                   pre_nms_top_k)
+
+
+def filter_detections_batch(
+    boxes,
+    dims,
+    classification,
+    num_classes: int = 1,
+    class_specific: bool = True,
+    orientation_specific: bool = False,
+    nms: bool = True,
+    score_threshold: float = 0.05,
+    max_detections: int = 100,
+    nms_threshold: float = 0.5,
+    pre_nms_top_k: int = 1024,
+) -> Detections:
+    """The filter over every anchor's decoded predictions (the JAX
+    package's unfused path, which mirrors the reference's
+    filter_detections layer).
+
+    Args
+      boxes: (B, N, 12) decoded boxes and keypoints; dims: (B, N, 3C)
+      decoded per-class dimensions; classification: (B, N, 8C) sigmoid
+      scores (layout [sign0 | sign1], each half indexed 4*c + o).
+    """
+    c = num_classes
+    return _filter(
+        classification, lambda top_idx: _take(boxes, top_idx),
+        lambda anchor, label: _class_rows(dims, anchor, label, c), c,
+        class_specific, orientation_specific, nms, score_threshold,
+        max_detections, nms_threshold, pre_nms_top_k)
+
+
+def filter_detections(boxes, dims, classification, **kw) -> Detections:
+    """One image's view of `filter_detections_batch`: boxes (N, 12), dims
+    (N, 3C), classification (N, 8C) -> fields of shape (M, ...)."""
+    out = filter_detections_batch(boxes[None], dims[None],
+                                  classification[None], **kw)
+    return Detections(*(f[0] for f in out))

@@ -65,17 +65,27 @@ class DataParallelMesh(NamedTuple):
             dist.all_reduce(t, group=self.group)
         return t
 
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's `t` in rank order, on every rank.
+        Each rank writes its `t` into a zeroed block and the blocks are
+        summed (exact: every entry adds zeros), one all-reduce, which
+        NCCL and gloo both have for CUDA tensors. Under gloo the sum runs
+        in float32 for a narrower float dtype (exact for bf16 and fp16)."""
+        if self.group is None:
+            return t[None]
+        wide = (dist.get_backend(self.group) == "gloo"
+                and t.is_floating_point() and t.element_size() < 4)
+        out = t.new_zeros((self.size, *t.shape),
+                          dtype=torch.float32 if wide else t.dtype)
+        out[self.rank] = t
+        return self.all_reduce(out).to(t.dtype)
+
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' `t` (each this rank's rows of a batch) concatenated
-        in rank order, on every rank: each rank writes its rows into a
-        zeroed batch and the batches are summed (exact: every entry adds
-        zeros), one collective for any backend and dtype."""
+        in rank order, on every rank (`all_gather`)."""
         if self.group is None:
             return t
-        n = t.shape[0]
-        out = t.new_zeros((n * self.size, *t.shape[1:]))
-        out[self.rank * n:(self.rank + 1) * n] = t
-        return self.all_reduce(out)
+        return self.all_gather(t).reshape(-1, *t.shape[1:])
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """`t` of the mesh's rank 0 on every rank, in place."""

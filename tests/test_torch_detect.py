@@ -18,7 +18,6 @@ from ground_plane_polling_tpu.inference import make_detect_fn as jax_detect_fn
 from ground_plane_polling_tpu.ops.polling import normalize_planes
 from ground_plane_polling_tpu_torch import inference
 from ground_plane_polling_tpu_torch.models import load_weights
-from ground_plane_polling_tpu_torch.parallel import data_parallel_mesh
 
 from .test_inference_pipeline import IMG, _build_scene_outputs, _planes
 from .test_polling import P_INV
@@ -130,14 +129,21 @@ def test_stub_scene_recovers_plane_keypoints_and_pose():
     assert (out.boxes[0, 1:].numpy() == -1).all()
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"fused_decode": False}, "A4"),
-    ({"mesh": data_parallel_mesh(device="cpu"), "shard_spatial": True},
-     "A15"),
-    ({"shard_spatial": True}, "A15")])
-def test_detect_fn_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        inference.make_detect_fn(shrunk_torch_model(), CANVAS, **kwargs)
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"shard_spatial": True, "fused_decode": False}, ValueError,
+     "shard_spatial requires a mesh"),
+    ({"mesh": "data", "shard_spatial": True}, TypeError,
+     "mesh must come from data_parallel_mesh"),
+    ({"mesh": "data"}, TypeError, "mesh must come from data_parallel_mesh")])
+def test_detect_fn_unported_options_raise(kwargs, error, match):
+    """Every option of JAX's make_detect_fn is ported (the unfused decode,
+    tests/test_torch_unfused_decode.py; shard_spatial,
+    tests/test_torch_spatial.py); what is refused is a mesh that is
+    missing where shard_spatial needs one (as JAX refuses it) or is not a
+    data_parallel_mesh."""
+    with pytest.raises(error, match=match):
+        inference.make_detect_fn(shrunk_torch_model(), CANVAS, device="cpu",
+                                 **kwargs)
 
 
 def test_gpp_detector_detect_image(tmp_path):

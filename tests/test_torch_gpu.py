@@ -896,3 +896,91 @@ def test_int8_mobilenet_detector_launches(cuda):
             int8_conv_cuda.QUANTIZE_LAUNCHES - before[1],
             int8_conv_cuda.CONV_LAUNCHES - before[2]) == (13, 97, 97)
     assert all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+
+
+def _detect_args(b, canvas, device, seed=0):
+    rng = np.random.RandomState(seed)
+    P = np.array([[721.5, 0.0, 609.6, 44.9], [0.0, 721.5, 172.9, 0.2],
+                  [0.0, 0.0, 1.0, 0.003]])
+    planes = polling_cases.random_case(rng, b, 1, 1000)[-1]
+    return (torch.from_numpy(rng.randint(0, 256, (b, *canvas, 3)).astype(
+                np.uint8)).to(device),
+            torch.from_numpy(np.tile(np.linalg.pinv(P)[None], (b, 1, 1))
+                             .astype(np.float32)).to(device),
+            torch.from_numpy(np.asarray(planes, np.float32)).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("orientation_specific", [False, True])
+def test_unfused_decode_equals_fused_on_the_card(cuda, tf32_off,
+                                                 orientation_specific):
+    """make_detect_fn(fused_decode=False) against the fused default on the
+    same model and images, float32 at 128x416 with pose: labels and
+    orientations equal, scores rtol 1e-6, boxes rtol 1e-4 / atol 1e-3,
+    dims 1e-4 (JAX's own bound between its two paths); one polling
+    launch a call."""
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+
+    model = place_model(_seeded_detector(), cuda)
+    args = _detect_args(2, (128, 416), cuda)
+    outs = []
+    for fused in (True, False):
+        detect = make_detect_fn(model, (128, 416), with_pose=True,
+                                device_preprocess=True, fused_decode=fused,
+                                orientation_specific=orientation_specific)
+        before = polling_cuda.LAUNCHES
+        out = detect(*args)
+        assert polling_cuda.LAUNCHES == before + 1
+        outs.append({k: v.cpu().numpy() for k, v in out._asdict().items()})
+    want, got = outs
+    assert (want["scores"] > 0).any(axis=1).all()
+    for key in ("labels", "orientations"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=1e-6)
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=1e-4,
+                               atol=1e-3)
+    np.testing.assert_allclose(got["dims"], want["dims"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [False, True], ids=["split", "fused"])
+def test_packed_heads_match_unpacked_on_the_card(cuda, tf32_off, fuse):
+    """build_detector(pack_levels=True) against the unpacked model on the
+    card, float32 with TF32 off: rtol 1e-3, atol 1e-3 of the largest
+    magnitude (as fused against split: a conv over the canvas may sum in
+    another order than the per-level convs); the canvas stays
+    channels-last."""
+    from ground_plane_polling_tpu_torch.inference import place_model
+    from ground_plane_polling_tpu_torch.models import build_detector
+    from ground_plane_polling_tpu_torch.models import retinanet
+
+    base = _seeded_detector(fuse)
+    packed = build_detector("resnet50", fuse_cls_dim=fuse, pack_levels=True)
+    packed.load_state_dict(base.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -128, 128, (2, 3, 128, 416)).astype(np.float32)).to(cuda)
+    canvases = []
+    pack_tail = retinanet._pack_tail
+
+    def spy(features, gap=1):
+        out = pack_tail(features, gap)
+        canvases.append(out[0])
+        return out
+
+    outs = []
+    retinanet._pack_tail = spy
+    try:
+        for net in (base, packed):
+            net = place_model(net, cuda)
+            with torch.inference_mode():
+                outs.append({k: v.cpu().numpy() for k, v in net(x).items()})
+    finally:
+        retinanet._pack_tail = pack_tail
+    assert len(canvases) == 1
+    assert canvases[0].is_contiguous(memory_format=torch.channels_last)
+    for key, ref in outs[0].items():
+        np.testing.assert_allclose(outs[1][key], ref, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(ref).max()),
+                                   err_msg=key)

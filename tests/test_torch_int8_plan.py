@@ -38,10 +38,11 @@ def h100_slots():
     return {tile: H100_SMS * n for tile, n in H100_PER_SM.items()}
 
 
-def detector_sites(batch, fuse):
+def detector_sites(batch, fuse, pack=False):
     """(x shape, w shape, stride, padding) of every conv call of one
     forward, in call order."""
-    model = build_detector("resnet50", fuse_cls_dim=fuse).to("meta")
+    model = build_detector("resnet50", fuse_cls_dim=fuse,
+                           pack_levels=pack).to("meta")
     sites = []
 
     def record(site, conv, x):
@@ -62,6 +63,39 @@ def site_gemm(site):
     return b * ho * wo, o, c * kh * kw
 
 
+def assert_plan_valid(site, slots):
+    """The checks of the test below on one site's plan; returns its
+    splits."""
+    m, n, k = site_gemm(site)
+    bm, bn, splits = ic.plan_conv(m, n, k, slots, H100_SMS)
+    assert (bm, bn) in ic.TILES, site
+    assert bn == (min(w for w in ic.WIDTHS if w >= n) if n <= 144
+                  else 128), site
+    steps = -(-k // ic.K_STEP)
+    ranges = ic.split_ranges(steps, splits)
+    assert len(ranges) == splits, site
+    assert ranges[0][0] == 0 and ranges[-1][1] == steps, site
+    assert all(a < b for a, b in ranges), site
+    assert all(r[1] == s[0] for r, s in zip(ranges, ranges[1:])), site
+    if splits > 1:
+        assert all(b - a >= ic.MIN_SPLIT_STEPS for a, b in ranges[:-1])
+    tiles = -(-m // bm) * -(-n // bn)
+    # a grid smaller than the card holds at once is split until every
+    # SM has a block, unless K runs out of splits
+    if tiles < slots[(bm, bn)]:
+        assert (tiles * splits >= H100_SMS
+                or splits == ic.split_counts(steps)[-1]), (site, splits)
+    else:
+        assert splits == 1, site
+    partials, counters = ic.workspace_size(m, n, (bm, bn, splits))
+    if splits == 1:
+        assert (partials, counters) == (0, 0)
+    else:
+        assert counters == tiles
+        assert partials == tiles * splits * bm * bn < 2**31
+    return splits
+
+
 @pytest.mark.parametrize("batch", [1, 4])
 @pytest.mark.parametrize("fuse", [False, True], ids=["split", "fused"])
 def test_plan_is_valid_at_every_detector_site(batch, fuse):
@@ -73,38 +107,24 @@ def test_plan_is_valid_at_every_detector_site(batch, fuse):
     sites = detector_sites(batch, fuse)
     assert len(sites) == (111 if fuse else 136)
     slots = h100_slots()
-    split_sites = 0
-    for site in sites:
-        m, n, k = site_gemm(site)
-        bm, bn, splits = ic.plan_conv(m, n, k, slots, H100_SMS)
-        assert (bm, bn) in ic.TILES, site
-        assert bn == (min(w for w in ic.WIDTHS if w >= n) if n <= 144
-                      else 128), site
-        steps = -(-k // ic.K_STEP)
-        ranges = ic.split_ranges(steps, splits)
-        assert len(ranges) == splits, site
-        assert ranges[0][0] == 0 and ranges[-1][1] == steps, site
-        assert all(a < b for a, b in ranges), site
-        assert all(r[1] == s[0] for r, s in zip(ranges, ranges[1:])), site
-        if splits > 1:
-            split_sites += 1
-            assert all(b - a >= ic.MIN_SPLIT_STEPS for a, b in ranges[:-1])
-        tiles = -(-m // bm) * -(-n // bn)
-        # a grid smaller than the card holds at once is split until every
-        # SM has a block, unless K runs out of splits
-        if tiles < slots[(bm, bn)]:
-            assert (tiles * splits >= H100_SMS
-                    or splits == ic.split_counts(steps)[-1]), (site, splits)
-        else:
-            assert splits == 1, site
-        partials, counters = ic.workspace_size(m, n, (bm, bn, splits))
-        if splits == 1:
-            assert (partials, counters) == (0, 0)
-        else:
-            assert counters == tiles
-            assert partials == tiles * splits * bm * bn < 2**31
+    split_sites = sum(assert_plan_valid(site, slots) > 1 for site in sites)
     # the small grids of layer4 and P5-P7 are the ones split
     assert split_sites >= (40 if batch == 1 else 20)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("fuse", [False, True], ids=["split", "fused"])
+def test_plan_is_valid_at_every_packed_site(batch, fuse):
+    """build_detector(pack_levels=True): 91 sites (81 fused), whose head
+    towers run on P3 and on the 26 x 127 canvas of P4..P7 at 416x1344 (M
+    = 26 127 B rows): each plan as valid as the unpacked ones."""
+    sites = detector_sites(batch, fuse, pack=True)
+    assert len(sites) == (81 if fuse else 91)
+    tail = [s for s in sites if s[0][2:] == (26, 127)]
+    assert len(tail) == (10 if fuse else 15)
+    slots = h100_slots()
+    for site in sites:
+        assert_plan_valid(site, slots)
 
 
 def test_plan_examples_on_the_h100():
