@@ -7,8 +7,8 @@ PyTorch versions and runs its main path end to end.
 
 Phases (any failure exits non-zero before the last line):
   0. environment: a CUDA card, its name and power limit; build the polling,
-     int8 and depthwise kernels from csrc/ (one nvcc for each source, at
-     once) and print the build times and nvcc's register reports; count the
+     int8, depthwise and NMS kernels from csrc/ (one nvcc for each source,
+     at once) and print the build times and nvcc's register reports; count the
      warpgroup MMAs (IGMMA) in each instance of the int8 conv kernel's
      SASS, which must not be 0;
   1. the polling kernel against its twin on the card, at (B, D, P) =
@@ -125,8 +125,25 @@ Phases (any failure exits non-zero before the last line):
      joined: the b1 float32 call
      against one process, each rank's widest conv input against its slab
      plus halo, and bf16 timed against one process.
-Phases 4-12 each drive their path with the launch counts set to 0 and fail
-if a kernel of the path was not launched.
+ 13. the detect call as CUDA graphs (inference.CapturedDetect), ResNet-50
+     FPN 512 at 416x1344, 21,634 planes, pose on: (a) the NMS kernels
+     (csrc/nms.cu) against greedy_nms, the plain fixpoint, bit for bit on
+     the real candidates of a b4 bf16 call (and its first image) and on
+     the crafted cases of kernels/nms_cases.py, timed beside their bound
+     and the plain version; (b) the captured call against detect.eager in
+     bf16 and int8 at b1 and b4: labels and orientations equal, the float
+     fields' gaps (0 unless the eager call itself does not repeat), no
+     host sync in a replay (torch.cuda's sync debug mode), one polling and
+     one NMS launch a replay (136 of each int8 kernel), the host's API
+     calls and the device's operations a call, ms a call in turns eager /
+     captured / captured / eager, and the card's idle share of the call;
+     (c) the captures and calls of phases 3 and 4 (run_network and serve,
+     whose txts those phases hold), which must have gone through the
+     captured call.
+Every detect call on the card above is a captured call (phases 9b and 12c
+use a mesh and run eagerly). Phases 4-13 each drive their path with the
+launch counts set to 0 and fail if a kernel of the path was not launched;
+a captured call counts the launches it replays.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -359,7 +376,7 @@ def phase2_main_path(torch, polling_cuda):
         torch.cuda.synchronize()
         runs[b] = (detect, images, P_inv_b, planes_b)
 
-    polling_cuda.LAUNCHES = 0  # count only the main path's own launches
+    zero_launches()  # count only the main path's own launches
     timings = {}
     n_iter = 10
     for b, (detect, images, P_inv_b, planes_b) in runs.items():
@@ -383,11 +400,14 @@ def phase2_main_path(torch, polling_cuda):
         log(f"  b{b}: {timings[b] * 1e3:.3f} ms per call, "
             f"{b / timings[b]:.2f} img/s (host clock over {n_iter} calls, "
             f"synchronized), valid detections per image {n_valid.tolist()}")
-    launches = polling_cuda.LAUNCHES
+    counts = zero_launches()
+    launches = counts["LAUNCHES"]
     per_call = launches / (len(runs) * n_iter)
     assert launches == 2 * n_iter, f"polling kernel launched {launches} times"
-    log(f"  polling kernel launches in the main path: {launches}, "
-        f"{per_call:g} per detect call")
+    assert counts["NMS_LAUNCHES"] == 2 * n_iter, counts
+    log(f"  kernel launches in the main path (captured calls): polling "
+        f"{launches}, NMS {counts['NMS_LAUNCHES']}, {per_call:g} of each per "
+        "detect call")
 
     log("phase 2b: float32, TF32 off, canvas 128x416: card against CPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -409,7 +429,7 @@ def phase2_main_path(torch, polling_cuda):
                                    err_msg=f"f32 head {k}")
         log(f"  {k}: max |card - cpu| {np.abs(got - ref).max():.3e} "
             f"(rtol 1e-3, atol 1e-3 * max|cpu| = {atol:.3e})")
-    return launches, per_call, timings
+    return counts, per_call, timings
 
 
 def phase3_cli(torch, polling_cuda, twin, tmp):
@@ -3292,6 +3312,308 @@ def phase12_options(torch, polling_cuda, int8_conv_cuda, tmp, smi):
     return result
 
 
+# phase 13: the captured detect call
+
+NMS_OPS = 14  # f32 operations of one IoU decision (csrc/nms.cu)
+# calls of each timed block of 13b; blocks in turns eager, captured,
+# captured, eager
+CAPTURE_CALLS = 20
+# host-side CUDA API calls that start device work (profiler names)
+HOST_LAUNCHES = ("LaunchKernel", "GraphLaunch", "MemcpyAsync",
+                 "MemsetAsync")
+
+
+@contextlib.contextmanager
+def captured_calls():
+    """Counts of CapturedDetect's captures and calls while the block runs:
+    {"captures": n, "calls": n}."""
+    from ground_plane_polling_tpu_torch.inference import CapturedDetect
+
+    counts = {"captures": 0, "calls": 0}
+    call, capture = CapturedDetect.__call__, CapturedDetect._capture
+
+    def counted_call(self, *args):
+        counts["calls"] += 1
+        return call(self, *args)
+
+    def counted_capture(self, *args):
+        counts["captures"] += 1
+        return capture(self, *args)
+
+    CapturedDetect.__call__ = counted_call
+    CapturedDetect._capture = counted_capture
+    try:
+        yield counts
+    finally:
+        CapturedDetect.__call__, CapturedDetect._capture = call, capture
+
+
+def zero_launches():
+    """Every kernel launch counter (inference.LAUNCH_COUNTERS) to 0;
+    returns the counts before, by name."""
+    from ground_plane_polling_tpu_torch.inference import LAUNCH_COUNTERS
+
+    before = {name: getattr(m, name) for m, name in LAUNCH_COUNTERS}
+    for m, name in LAUNCH_COUNTERS:
+        setattr(m, name, 0)
+    return before
+
+
+def nms_bound_ms(scores, idx, valid, max_out):
+    """Least time of greedy NMS on these inputs: the IoU decisions this
+    data needs (each kept candidate against every later valid one) at the
+    f32 peak, and the bytes (each input read once, each output written
+    once) at the memory rate. Returns (ms, "operations" or "bytes")."""
+    scores, idx, valid = (np.asarray(t.cpu()) for t in (scores, idx, valid))
+    s, k = scores.shape
+    live = scores > -np.inf
+    later = np.cumsum(live[:, ::-1], axis=1)[:, ::-1] - live  # valid i > j
+    pairs = sum(int(later[r, idx[r][valid[r]]].sum()) for r in range(s))
+    ms = {"operations": NMS_OPS * pairs / PEAK_F32_OPS * 1e3,
+          "bytes": (s * k * (16 + 4) + s * max_out * (8 + 1 + 4))
+          / PEAK_BYTES * 1e3}
+    limit = max(ms, key=ms.get)
+    return ms[limit], limit
+
+
+def compare_nms(got, want, label):
+    """NMS outputs bit for bit (index, valid, score)."""
+    for name, g, w in zip(("idx", "valid", "score"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, name)
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=f"{label} {name}")
+
+
+def phase13a_nms(torch, nms_cuda, model, rng, planes):
+    """The NMS kernels against the plain fixpoint on the card: the real
+    candidates of a b4 bf16 detect call (its first row as b1) and the
+    crafted cases, bit for bit; timed beside the bound and the plain
+    version."""
+    from ground_plane_polling_tpu_torch.inference import make_detect_fn
+    from ground_plane_polling_tpu_torch.kernels import nms_cases
+    from ground_plane_polling_tpu_torch.ops import filtering
+
+    log("phase 13a: the NMS kernels against greedy_nms (the plain "
+        "fixpoint) on the card, bit for bit (index, valid, score)")
+    seen = []
+    kernel = nms_cuda.greedy_nms
+
+    def spy(*args):
+        seen.append(args)
+        return kernel(*args)
+
+    detect = make_detect_fn(model, CANVAS, with_pose=True,
+                            device_preprocess=True)
+    nms_cuda.greedy_nms = spy
+    try:
+        detect.eager(*detect_inputs(torch, rng, 4, torch.device("cuda"),
+                                    planes))
+    finally:
+        nms_cuda.greedy_nms = kernel
+    (boxes4, scores, max_out, thr), = seen
+    assert tuple(scores.shape) == (4, 1024) and max_out == 100, scores.shape
+    rows = {}
+    for label, args in (("b1", (boxes4[:1], scores[:1], max_out, thr)),
+                        ("b4", (boxes4, scores, max_out, thr))):
+        got = kernel(*args)
+        compare_nms(got, filtering.greedy_nms(*args), f"real {label}")
+        ms = device_ms(torch, lambda: kernel(*args), reps=20)
+        plain_ms = cuda_ms(lambda: filtering.greedy_nms(*args), calls=10,
+                           warmup=2)
+        bound, by = nms_bound_ms(args[1], got[0], got[1], max_out)
+        kept = got[1].sum(dim=1).tolist()
+        valid = (args[1] > float("-inf")).sum(dim=1).tolist()
+        rows[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "kept": kept, "valid": valid}
+        log(f"  real candidates {label}: K {args[1].shape[1]}, valid "
+            f"{valid}, kept {kept}: equal; kernel {ms:.4f} ms (device, "
+            f"CUDA events over 20 calls queued behind a spinning kernel), "
+            f"bound {bound:.6f} ms ({by}), plain fixpoint {plain_ms:.4f} "
+            "ms (host syncs included; a record, not a yardstick)")
+    names = []
+    for name, boxes, sc, m, t in nms_cases.crafted_cases():
+        args = (torch.from_numpy(boxes).cuda(), torch.from_numpy(sc).cuda(),
+                m, t)
+        compare_nms(kernel(*args), filtering.greedy_nms(*args), name)
+        names.append(name)
+    log("  crafted cases equal: " + ", ".join(names))
+    return rows
+
+
+def call_profile(torch, fn, reps=5):
+    """(host API calls that start device work, device operations, device
+    ms) per call of fn(), from torch.profiler over `reps` calls; the
+    device ms are None where the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and any(k in e.name for k in HOST_LAUNCHES)]
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
+    return len(host) / reps, len(device) / reps, (busy if device else None)
+
+
+def call_turns(torch, fns, args, n=CAPTURE_CALLS):
+    """Host-clock ms per call of each of fns {name: fn} over blocks of `n`
+    synchronized calls, in turns (a, b, b, a): {name: [ms, ms]}."""
+    names = list(fns)
+    out = {name: [] for name in names}
+    for name in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fns[name](*args)
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) / n * 1e3)
+    return out
+
+
+def float_gaps(got, want):
+    """{field: largest |got - want|} of the float fields; NaN where both
+    are NaN counts as equal, NaN in one only fails."""
+    gaps = {}
+    for key, w in want._asdict().items():
+        if key in ("labels", "orientations") or w is None:
+            continue
+        g = getattr(got, key).float().cpu().numpy()
+        w = w.float().cpu().numpy()
+        assert np.array_equal(np.isnan(g), np.isnan(w)), key
+        gaps[key] = float(np.nanmax(np.abs(g - w))) if g.size else 0.0
+    return gaps
+
+
+def phase13b_captured(torch, model, scales, rng, planes):
+    """The captured call against detect.eager at full width, bf16 and int8
+    at b1 and b4: equal outputs, host syncs, launches, times, idle share."""
+    from ground_plane_polling_tpu_torch.inference import (CapturedDetect,
+                                                          make_detect_fn)
+
+    log("phase 13b: the captured detect call against detect.eager, "
+        f"ResNet-50 FPN 512 at {CANVAS[0]}x{CANVAS[1]}, {N_PLANES} planes, "
+        "pose on, bf16 and int8, b1 and b4")
+    dev = torch.device("cuda")
+    rows = {}
+    for name, b, q in (("bf16", 1, None), ("bf16", 4, None),
+                       ("int8", 1, scales), ("int8", 4, scales)):
+        label = f"{name} b{b}"
+        detect = make_detect_fn(model, CANVAS, with_pose=True,
+                                device_preprocess=True, quant_scales=q)
+        assert isinstance(detect, CapturedDetect), type(detect)
+        args = detect_inputs(torch, rng, b, dev, planes)
+        t0 = time.perf_counter()
+        detect(*args)  # warm-up and capture, then the first replay
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        eager = [detect.eager(*args) for _ in range(2)]
+        zero_launches()
+        got, syncs = host_syncs(torch, lambda: detect(*args))
+        torch.cuda.synchronize()
+        launches = zero_launches()
+        for key in ("labels", "orientations"):
+            np.testing.assert_array_equal(
+                getattr(got, key).cpu().numpy(),
+                getattr(eager[0], key).cpu().numpy(),
+                err_msg=f"{label} {key}")
+        gaps = float_gaps(got, eager[0])
+        eager_gaps = float_gaps(eager[1], eager[0])
+        nonzero = {k: v for k, v in gaps.items() if v}
+        if nonzero:
+            # allowed only where the eager call itself does not repeat
+            # bit for bit, and then within phase 3's tolerances
+            assert any(eager_gaps.values()), (label, nonzero)
+            compare_detections(got, eager[0], label)
+        _, eager_syncs = host_syncs(torch, lambda: detect.eager(*args))
+        assert syncs == [], (label, syncs)
+        assert launches["LAUNCHES"] == 1 and launches["NMS_LAUNCHES"] == 1, \
+            (label, launches)
+        if q is not None:
+            assert (launches["QUANTIZE_LAUNCHES"], launches["CONV_LAUNCHES"]
+                    ) == (INT8_SITES[False],) * 2, (label, launches)
+        profiles = {k: call_profile(torch, lambda fn=fn: fn(*args))
+                    for k, fn in (("eager", detect.eager),
+                                  ("captured", detect))}
+        replays_ms = device_ms(torch, lambda: detect(*args), reps=5)
+        turns = call_turns(torch, {"eager": detect.eager,
+                                   "captured": detect}, args)
+        ms = {k: float(np.mean(v)) for k, v in turns.items()}
+        busy = {k: p[2] for k, p in profiles.items()}
+        idle = {k: (1 - busy[k] / ms[k]) if busy[k] is not None else None
+                for k in ms}
+        valid = (got.scores > 0).sum(dim=1).tolist()
+        rows[label] = {
+            "capture_s": capture_s, "gaps": gaps, "eager_gaps": eager_gaps,
+            "host_syncs": len(syncs), "eager_host_syncs": len(eager_syncs),
+            "launches": launches, "turns_ms": turns, "ms": ms,
+            "host_launches": {k: p[0] for k, p in profiles.items()},
+            "device_ops": {k: p[1] for k, p in profiles.items()},
+            "device_ms": busy, "replays_back_to_back_ms": replays_ms,
+            "idle_share": idle, "valid": valid}
+        log(f"  {label}: first call (warm-up, capture, replay) "
+            f"{capture_s:.2f} s; valid detections {valid}; labels and "
+            "orientations equal; largest float gap "
+            + (", ".join(f"{k} {v:.3g}" for k, v in nonzero.items())
+               + f" (eager against eager: {eager_gaps})" if nonzero
+               else "0 in every field"))
+        log(f"    host syncs in a replay {len(syncs)}, in an eager call "
+            f"{len(eager_syncs)} {eager_syncs[:3]}; launches a replay "
+            f"{launches}")
+        log(f"    host API calls that start device work a call: eager "
+            f"{profiles['eager'][0]:g}, captured {profiles['captured'][0]:g};"
+            f" device operations a call: eager {profiles['eager'][1]:g}, "
+            f"captured {profiles['captured'][1]:g}")
+        log(f"    ms a call (host clock, {CAPTURE_CALLS} synchronized calls "
+            "a block, eager / captured / captured / eager): "
+            f"{turns['eager'][0]:.3f} / {turns['captured'][0]:.3f} / "
+            f"{turns['captured'][1]:.3f} / {turns['eager'][1]:.3f}; device "
+            "ms a call (profiler): " + ", ".join(
+                f"{k} {v:.3f}" if v is not None else f"{k} not measured"
+                for k, v in busy.items())
+            + f"; 5 replays back to back (CUDA events): {replays_ms:.3f} "
+            "ms a replay; idle share of the call: " + ", ".join(
+                f"{k} {v:.1%}" if v is not None else f"{k} not measured"
+                for k, v in idle.items()))
+    return rows
+
+
+def phase13_captured(torch, nms_cuda, smi, calls):
+    """The detect call as CUDA graphs: (a) the NMS kernels, (b) the
+    captured call against detect.eager, (c) run_network and serve
+    (phases 3 and 4) through the captured call."""
+    from ground_plane_polling_tpu_torch.inference import place_model
+    from ground_plane_polling_tpu_torch.models import quantize as tq
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 13)
+    planes = synthetic_planes(rng, N_PLANES)
+    model = place_model(full_width_model(torch, SEED), dev, torch.bfloat16)
+    result = {"13a": phase13a_nms(torch, nms_cuda, model, rng, planes)}
+    canvases = [torch.from_numpy(rng.randint(0, 256, (1, *CANVAS, 3)).astype(
+        np.uint8)).to(dev) for _ in range(INT8_CALIB_12)]
+    scales = tq.collect_scales_uint8(model, canvases)
+    result["13b"] = phase13b_captured(torch, model, scales, rng, planes)
+    log("phase 13c: run_network (phase 3) and serve (phase 4) through the "
+        "captured call, their txts held as those phases hold them: "
+        + "; ".join(f"phase {k}: {v['captures']} captures, {v['calls']} "
+                    "calls" for k, v in calls.items()))
+    for k, v in calls.items():
+        assert v["captures"] > 0 and v["calls"] > v["captures"], (k, v)
+    result["13c"] = calls
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"  {smi}; phase 13 wall: {result['wall_s']:.2f} s")
+    return result
+
+
 def load_int8_tree(root, alias):
     """(kernels.int8_conv_cuda, kernels.int8_depthwise_cuda or None) of the
     package in checkout `root`, imported under the top-level name `alias`
@@ -3376,6 +3698,7 @@ def main(argv=None):
 
     from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
                                                         int8_depthwise_cuda,
+                                                        nms_cuda,
                                                         polling_cases,
                                                         polling_cuda)
     from ground_plane_polling_tpu_torch.ops import polling as twin
@@ -3401,7 +3724,7 @@ def main(argv=None):
             lib, error = None, str(e)
         return lib, time.perf_counter() - t0, error
 
-    modules = [polling_cuda, int8_conv_cuda, int8_depthwise_cuda]
+    modules = [polling_cuda, int8_conv_cuda, int8_depthwise_cuda, nms_cuda]
     other = other_dw = None
     if args.against:
         other, other_dw = load_int8_tree(args.against, "gpp_against")
@@ -3433,10 +3756,14 @@ def main(argv=None):
     if args.dp_cards:
         return dp_cards(torch, polling_cuda, smi, args.dp_cards, args.phase)
     kernel = phase1_kernel(torch, polling_cuda, twin, polling_cases)
-    launches, per_call, _ = phase2_main_path(torch, polling_cuda)
+    counts, per_call, _ = phase2_main_path(torch, polling_cuda)
+    launches = counts["LAUNCHES"]
+    calls = {}
     with tempfile.TemporaryDirectory() as tmp:
-        cli = phase3_cli(torch, polling_cuda, twin, tmp)
-        phase4_serve(torch, polling_cuda, tmp, cli)
+        with captured_calls() as calls["3"]:
+            cli = phase3_cli(torch, polling_cuda, twin, tmp)
+        with captured_calls() as calls["4"]:
+            phase4_serve(torch, polling_cuda, tmp, cli)
         phase5_fused(torch, polling_cuda)
         evaluated = phase6_evaluate(torch, polling_cuda, tmp, cli)
         trained = phase7_train(torch, polling_cuda, tmp, cli, smi)
@@ -3450,9 +3777,11 @@ def main(argv=None):
                             native_builds)
         options = phase12_options(torch, polling_cuda, int8_conv_cuda, tmp,
                                   smi)
+    captured = phase13_captured(torch, nms_cuda, smi, calls)
     log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
         "phase 0's device query")
     pc = int8["per_call"]
+    nms = captured["13a"]
     dw = backbones["10c"]
     dw1, dw4 = dw["per_call"]["b1"], dw["per_call"]["b4"]
 
@@ -3560,6 +3889,30 @@ def main(argv=None):
         "floor_ms": dw1["floor_ms"],
         "against": ({b: dw["per_call"][b]["against"] for b in ("b1", "b4")}
                     if "against" in dw1 else None),
+    }, {
+        "name": "nms",
+        "route": "cuda",
+        "source": "ground_plane_polling_tpu_torch/csrc/nms.cu",
+        "replaces": "ground_plane_polling_tpu/ops/filtering.py:85",
+        # phase 13b's captured calls (bf16 and int8, b1 and b4), one a call
+        "launches": sum(r["launches"]["NMS_LAUNCHES"]
+                        for r in captured["13b"].values()),
+        "max_abs_err": 0.0,  # bit for bit (phase 13a)
+        "ms": nms["b1"]["ms"],
+        "plain_ms": nms["b1"]["plain_ms"],
+        "bound_ms": nms["b1"]["bound_ms"],
+        "bound_by": nms["b1"]["bound_by"],
+        # no one PyTorch call computes exact greedy NMS into fixed slots
+        "library_ms": None,
+        "launches_per_call": 1,
+        "launches_phase2": counts["NMS_LAUNCHES"],
+        "b4": {k: nms["b4"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "kept")},
+        # phase 13b: the captured call against eager, per configuration
+        "captured_call": {label: {k: r[k] for k in (
+            "ms", "device_ms", "idle_share", "host_launches", "device_ops",
+            "host_syncs", "eager_host_syncs", "capture_s")}
+            for label, r in captured["13b"].items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,14 @@ ground_plane_polling_tpu/inference.py).
 
 Outputs mirror the JAX package: boxes, dims, scores, labels, orientations,
 keypoints, keyplanes, residuals, padded to `max_detections` with -1, plus
-the pose fields when `with_pose`. PyTorch runs eagerly, so there is no
-compiled program; `make_detect_fn` fixes the image shape (the anchors) and
-the filter settings. Unlike the JAX package there is no plane-count rule:
-CUDA tensors always go through the polling kernel.
+the pose fields when `with_pose`. `make_detect_fn` fixes the image shape
+(the anchors) and the filter settings. On a card without a mesh it
+returns a `CapturedDetect`: one CUDA graph of the whole call per input
+signature, as the JAX package's jit compiles one executable per input
+shape, and no host sync between the input copy and the outputs (greedy
+NMS is a kernel, the pose solve has no SVD). On the CPU, and with a mesh,
+the call runs eagerly. Unlike the JAX package there is no plane-count
+rule: CUDA tensors always go through the polling kernel.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 
 from .data.frames import resize_uint8, uint8_canvas
 from .data.kitti import BGR_MEAN, preprocess_image, resize_scale
-from .kernels import polling_cuda
+from .kernels import (int8_conv_cuda, int8_depthwise_cuda, nms_cuda,
+                      polling_cuda)
 from .models import build_detector, init_detector, load_state, read_weights
 from .models.quantize import collect_scales, quantize_apply
 from .ops import anchors as anchor_ops
@@ -39,8 +44,9 @@ from .ops.pose import solve_pose
 from .parallel.mesh import check_mesh
 from .parallel.spatial import SpatialModel
 
-__all__ = ["DetectionOutput", "decode_predictions", "make_detect_fn",
-           "place_model", "require_device", "GPPDetector"]
+__all__ = ["CapturedDetect", "DetectionOutput", "LAUNCH_COUNTERS",
+           "decode_predictions", "make_detect_fn", "place_model",
+           "require_device", "GPPDetector"]
 
 
 class DetectionOutput(NamedTuple):
@@ -113,6 +119,11 @@ def make_detect_fn(
     filters (ops.filtering.filter_detections_batch): the reference's
     filter layer, literally; the default decodes only the pre-NMS
     candidates, with the same outputs.
+
+    On a CUDA device with no mesh the result is a CapturedDetect (one CUDA
+    graph per input signature, replayed); `detect.eager` is the same call
+    run eagerly, for comparisons. On the CPU, and with a mesh, `detect`
+    runs eagerly and `detect.eager` is `detect`.
 
     `shard_spatial` (requires `mesh`): the image WIDTH is split over the
     ranks instead of the batch (parallel/spatial.py). Every rank passes
@@ -193,7 +204,115 @@ def make_detect_fn(
 
     # the SpatialModel of shard_spatial (its last call's conv windows)
     detect.spatial = net if shard_spatial else None
-    return detect
+    detect.eager = detect
+    if device.type != "cuda" or mesh is not None:
+        return detect
+    return CapturedDetect(detect, image_shape, device)
+
+
+# the kernels' launch counters: (module, name) of each
+LAUNCH_COUNTERS = ((polling_cuda, "LAUNCHES"), (nms_cuda, "NMS_LAUNCHES"),
+                   (int8_conv_cuda, "QUANTIZE_LAUNCHES"),
+                   (int8_conv_cuda, "CONV_LAUNCHES"),
+                   (int8_depthwise_cuda, "DEPTHWISE_LAUNCHES"))
+
+
+def _launch_counts():
+    return [getattr(m, name) for m, name in LAUNCH_COUNTERS]
+
+
+def _set_launches(counts):
+    for (m, name), n in zip(LAUNCH_COUNTERS, counts):
+        setattr(m, name, n)
+
+
+class _Graph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple             # static (images, P_inv, planes)
+    out: DetectionOutput      # static outputs, rewritten by each replay
+    launches: list            # kernel launches of one replay, per counter
+
+
+class CapturedDetect:
+    """A detect call on a card as captured CUDA graphs, one per input
+    signature (the shapes of images, P_inv and planes, and the images'
+    dtype; a new batch size or plane count is a new signature, as under
+    JAX's jit).
+
+    The first call of a signature runs `eager` once on the stream it then
+    captures on, which builds the nvcc libraries, fills the kernels' plans
+    and cuDNN's choices, and allocates the per-stream workspaces of the
+    polling and int8 kernels there, so that the capture allocates none;
+    then it captures `eager` on static input buffers. All graphs of one
+    CapturedDetect share one memory pool, and replay on the caller's
+    current stream. A capture that fails raises: an operation that syncs
+    the host (`.item()`, a copy to the host) cannot be captured, and the
+    call never carries on eagerly.
+
+    Each call copies its inputs into the signature's static buffers,
+    replays, and returns copies of the outputs made on the stream after
+    the replay, so a result stays valid while later calls run. The kernels'
+    launch counters (LAUNCH_COUNTERS) count a call's launches as the eager
+    call does: the first call's warm-up and capture are set-up and are
+    taken back, and every replay adds the launches it replays.
+
+    The graphs read the model's parameters and buffers where they lay at
+    the capture: updates in place are seen, tensors that replace them are
+    not, and int8 weights are quantized at the capture."""
+
+    def __init__(self, eager, image_shape, device):
+        self.eager = eager
+        self.spatial = None
+        self.image_shape = image_shape
+        self.device = device
+        self.graphs = {}
+        self._pool = torch.cuda.graph_pool_handle()
+        self._stream = torch.cuda.Stream(device)
+
+    def _capture(self, inputs) -> _Graph:
+        static = tuple(torch.empty(x.shape, dtype=x.dtype,
+                                   device=self.device) for x in inputs)
+        for s, x in zip(static, inputs):
+            s.copy_(x)
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        before = _launch_counts()
+        try:
+            with torch.cuda.stream(self._stream):
+                self.eager(*static)  # warm-up: builds, plans, workspaces
+            warm = _launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                out = self.eager(*static)
+            captured = [a - b for a, b in zip(_launch_counts(), warm)]
+        finally:
+            _set_launches(before)  # set-up, not a call: the replay counts
+        caller.wait_stream(self._stream)
+        return _Graph(graph, static, out, captured)
+
+    @torch.inference_mode()
+    def __call__(self, images, P_inv, planes) -> DetectionOutput:
+        inputs = (torch.as_tensor(images), torch.as_tensor(P_inv).float(),
+                  torch.as_tensor(planes).float())
+        if tuple(inputs[0].shape[1:3]) != self.image_shape:
+            raise ValueError(f"images {tuple(inputs[0].shape)} do not match "
+                             f"the detect function's shape "
+                             f"{self.image_shape}")
+        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        with torch.cuda.device(self.device):
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = self._capture(inputs)
+            else:
+                for s, x in zip(g.inputs, inputs):
+                    s.copy_(x)
+            g.graph.replay()
+            _set_launches([n + k for n, k in zip(_launch_counts(),
+                                                 g.launches)])
+            return DetectionOutput(*(None if t is None else t.clone()
+                                     for t in g.out))
 
 
 def _gather(out: DetectionOutput, mesh) -> DetectionOutput:

@@ -76,6 +76,7 @@ _LIMIT = 2**31
 _lib = None
 _slots = {}       # device index -> ({(bm, bn): blocks held}, SMs)
 _plans = {}       # (device index, M, N, K) -> plan_conv's plan
+_retired = []    # outgrown workspaces, kept alive
 _workspaces = {}  # (device index, stream) -> (partials, counters)
 
 
@@ -218,6 +219,7 @@ def _workspace(device, stream, n_partials, n_counters):
     if ws is None or ws[0].numel() < n_partials or ws[1].numel() < \
             n_counters:
         if ws is not None:  # grow, never shrink: sites alternate
+            _retired.append(ws)  # a captured CUDA graph may hold it
             n_partials = max(n_partials, ws[0].numel())
             n_counters = max(n_counters, ws[1].numel())
         ws = (torch.empty(n_partials, dtype=torch.int32, device=device),

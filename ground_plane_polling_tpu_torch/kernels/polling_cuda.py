@@ -59,6 +59,7 @@ _INTS = (torch.int32, torch.int64)
 
 _lib = None
 _slots = {}       # device index -> (detections per block, blocks in a wave)
+_retired = []    # outgrown workspaces, kept alive
 _workspaces = {}  # (device index, stream) -> (states, counters)
 
 
@@ -113,6 +114,7 @@ def _workspace(device, stream, n_states, n_counters):
     ws = _workspaces.get(key)
     if ws is None or ws[0].numel() < n_states or ws[1].numel() < n_counters:
         if ws is not None:  # grow, never shrink: b1 and b4 calls alternate
+            _retired.append(ws)  # a captured CUDA graph may hold it
             n_states = max(n_states, ws[0].numel())
             n_counters = max(n_counters, ws[1].numel())
         ws = (torch.empty(n_states, dtype=torch.int32, device=device),

@@ -14,9 +14,12 @@ the pooled sets, padded with -1. The batch dimension is written out: every
 step runs on (B, ...) tensors.
 
 Tie-breaking follows lax.top_k (lower index first) through a stable
-descending sort. Greedy NMS is the fixpoint iteration of the JAX package;
-in eager PyTorch its convergence test is one host sync per round.
-`greedy_nms_serial` is its plain sequential reference.
+descending sort. The candidate sets of a batch go through greedy NMS
+together, stacked on the batch axis, in one call of
+kernels.nms_cuda.greedy_nms: on the card the hand-written kernels
+(csrc/nms.cu, no host sync), on the CPU `greedy_nms`, the fixpoint
+iteration of the JAX package, whose convergence test is one host sync a
+round on a card. `greedy_nms_serial` is its plain sequential reference.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import nms_cuda
 from . import box_coder
 from .overlap import iou_matrix
 
@@ -159,26 +163,31 @@ def _filter(classification, candidate_boxes, class_dims, num_classes,
     cls = classification.reshape(b, n, 2, c, 4).amax(dim=2)
     k = min(pre_nms_top_k, n)
 
-    def run_set(scores, labels, orients):
+    sets = _candidate_sets(cls, c, class_specific, orientation_specific)
+    tops = []  # (top scores, top anchor indices, candidate boxes) a set
+    for scores, _, _ in sets:
         masked = torch.where(scores > score_threshold, scores, _NEG_INF)
         top_scores, top_idx = _top_k(masked, k)
-        cand_boxes = candidate_boxes(top_idx)
+        tops.append((top_scores, top_idx, candidate_boxes(top_idx)))
+    if nms:
+        # every set of every image in one call, stacked on the batch axis
+        kept = nms_cuda.greedy_nms(
+            torch.cat([t[2][..., :4] for t in tops]),
+            torch.cat([t[0] for t in tops]), max_detections, nms_threshold)
+    parts = []
+    for i, ((_, labels, orients), (top_scores, top_idx, cand_boxes)) in \
+            enumerate(zip(sets, tops)):
         if nms:
-            sel, valid, sel_scores = greedy_nms(
-                cand_boxes[..., :4], top_scores, max_detections,
-                nms_threshold)
+            sel, valid, sel_scores = (x[i * b:(i + 1) * b] for x in kept)
             anchor_idx = torch.gather(top_idx, 1, sel)
-            return (anchor_idx, _take(cand_boxes, sel), valid, sel_scores,
-                    torch.gather(labels, 1, anchor_idx),
-                    torch.gather(orients, 1, anchor_idx))
-        m = min(max_detections, k)
-        anchor_idx = top_idx[:, :m]
-        return (anchor_idx, cand_boxes[:, :m], top_scores[:, :m] > _NEG_INF,
-                top_scores[:, :m], torch.gather(labels, 1, anchor_idx),
-                torch.gather(orients, 1, anchor_idx))
-
-    parts = [run_set(*s) for s in _candidate_sets(
-        cls, c, class_specific, orientation_specific)]
+            sel_boxes = _take(cand_boxes, sel)
+        else:
+            m = min(max_detections, k)
+            anchor_idx, sel_boxes = top_idx[:, :m], cand_boxes[:, :m]
+            valid, sel_scores = top_scores[:, :m] > _NEG_INF, top_scores[:, :m]
+        parts.append((anchor_idx, sel_boxes, valid, sel_scores,
+                      torch.gather(labels, 1, anchor_idx),
+                      torch.gather(orients, 1, anchor_idx)))
     idx, cand_boxes, valid, score, label, orient = (
         torch.cat([p[i] for p in parts], dim=1) for i in range(6))
 

@@ -19,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["PoseResult", "solve_pose", "rodrigues_from_matrix",
+__all__ = ["PoseResult", "solve_pose", "nearest_orthogonal",
+           "rodrigues_from_matrix",
            "matrix_from_rodrigues_np", "corners_from_pose"]
 
 _EPS = 1e-12
@@ -54,6 +55,30 @@ def rodrigues_from_matrix(R: torch.Tensor) -> torch.Tensor:
     return torch.where((small & ~near_pi)[..., None], vec_small, vec)
 
 
+def nearest_orthogonal(R: torch.Tensor) -> torch.Tensor:
+    """U @ Vh of the SVD of R (..., 3, 3) whose columns x, y are unit
+    vectors and whose third column z is orthogonal to both, as in
+    solve_pose's frame [x, y, x cross y] (det R = |x cross y|^2 >= 0; with
+    z = -(x cross y), det R < 0 and the result is a reflection, as the SVD
+    gives it). In closed form, with no iteration and no host sync:
+    R^T R = [[1, c, 0], [c, 1, 0], [0, 0, |z|^2]] (c = x . y) has the
+    eigenvectors (1, 1, 0) / sqrt 2, (1, -1, 0) / sqrt 2 and (0, 0, 1), so
+    R (R^T R)^(-1/2) = [(u + v) / sqrt 2, (u - v) / sqrt 2, z / |z|] with
+    u = (x + y) / |x + y| and v = (x - y) / |x - y|. A row where x and y
+    are (anti)parallel or z is 0 has no unique nearest rotation; there
+    the norms are clamped at eps and the result is finite."""
+    x, y, z = R[..., 0], R[..., 1], R[..., 2]
+
+    def unit(a):
+        return a / torch.clamp(torch.linalg.vector_norm(a, dim=-1,
+                                                        keepdim=True),
+                               min=_EPS)
+
+    u, v = unit(x + y), unit(x - y)
+    half = 0.5 ** 0.5
+    return torch.stack([(u + v) * half, (u - v) * half, unit(z)], dim=-1)
+
+
 class PoseResult(NamedTuple):
     locations: torch.Tensor   # (..., 3) box bottom-centre in camera coords
     angles: torch.Tensor      # (..., 3) Rodrigues rotation vector
@@ -80,9 +105,12 @@ def solve_pose(keypoints: torch.Tensor, orientations: torch.Tensor,
     edge = torch.linalg.vector_norm(X_sel - X_m, dim=-1)
     w = dimensions[..., 1]
 
-    table = keypoints.new_tensor([[1.0, 1.0, -1.0, -1.0],
-                                  [1.0, -1.0, 1.0, -1.0]])
-    s_x, s_l = table[0][o], table[1][o]
+    # s_x = (+1, +1, -1, -1)[o], s_l = (+1, -1, +1, -1)[o], indexed as the
+    # JAX package indexes its tables (o = -1 is entry 3); computed, not
+    # looked up, so that no constant is copied from the host
+    o4 = o % 4
+    s_x = torch.where(o4 < 2, 1.0, -1.0).to(keypoints.dtype)
+    s_l = torch.where(o4 % 2 == 0, 1.0, -1.0).to(keypoints.dtype)
 
     y_dir = (X_m - X_t) / torch.clamp(h, min=_EPS)[..., None]
     x_dir = s_x[..., None] * (X_m - X_sel) / torch.clamp(
@@ -95,16 +123,12 @@ def solve_pose(keypoints: torch.Tensor, orientations: torch.Tensor,
     locations = ((X_m + X_sel) / 2.0
                  + s_l[..., None] * z_dir * w[..., None] / 2.0)
 
-    # nearest rotation (U @ Vt of the SVD), as cv2.Rodrigues does; the sign
-    # ambiguity of U and V cancels in the product. Rows that are not finite
-    # (garbage from padded detections) skip the SVD, which refuses them,
-    # and report NaN angles.
+    # nearest rotation (U @ Vt of the SVD, as cv2.Rodrigues projects),
+    # in closed form; rows that are not finite (garbage from padded
+    # detections) report NaN angles
     R = torch.stack([x_dir, y_dir, z_dir], dim=-1)  # columns are the axes
     finite = torch.isfinite(R).all(dim=-1).all(dim=-1)
-    eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    R = torch.where(finite[..., None, None], R, eye)
-    U, _, Vh = torch.linalg.svd(R)
-    angles = rodrigues_from_matrix(U @ Vh)
+    angles = rodrigues_from_matrix(nearest_orthogonal(R))
     angles = torch.where(finite[..., None], angles, float("nan"))
     return PoseResult(locations=locations, angles=angles, dimensions=dims_out)
 

@@ -984,3 +984,136 @@ def test_packed_heads_match_unpacked_on_the_card(cuda, tf32_off, fuse):
         np.testing.assert_allclose(outs[1][key], ref, rtol=1e-3,
                                    atol=1e-3 * float(np.abs(ref).max()),
                                    err_msg=key)
+
+
+def _nms_inputs(case, device):
+    _, boxes, scores, max_out, thr = case
+    return (torch.from_numpy(boxes).to(device),
+            torch.from_numpy(scores).to(device), max_out, thr)
+
+
+def _nms_cases():
+    from ground_plane_polling_tpu_torch.kernels import nms_cases
+
+    rng = np.random.RandomState(3)
+    main = [(f"main_b{b}", *nms_cases.random_case(rng, s=b, k=1024,
+                                                  n_valid=900), 100, 0.5)
+            for b in (1, 4)]
+    return nms_cases.crafted_cases() + main
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _nms_cases(), ids=lambda c: c[0])
+def test_nms_kernel_matches_plain(cuda, case):
+    """The NMS kernels against the plain fixpoint on the card, on the
+    crafted cases and at the main path's shapes (K 1024, max_out 100, b1
+    and b4): index, valid and score equal in every slot; one launch."""
+    from ground_plane_polling_tpu_torch.kernels import nms_cuda
+    from ground_plane_polling_tpu_torch.ops import filtering
+
+    args = _nms_inputs(case, cuda)
+    before = nms_cuda.NMS_LAUNCHES
+    got = nms_cuda.greedy_nms(*args)
+    assert nms_cuda.NMS_LAUNCHES == before + 1
+    want = filtering.greedy_nms(*args)
+    for name, g, w in zip(("idx", "valid", "score"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=f"{case[0]} {name}")
+
+
+def _captured_detector(cuda, b=2, canvas=(128, 416), **kw):
+    from ground_plane_polling_tpu_torch.inference import (CapturedDetect,
+                                                          make_detect_fn,
+                                                          place_model)
+
+    model = place_model(_seeded_detector(), cuda)
+    detect = make_detect_fn(model, canvas, with_pose=True,
+                            device_preprocess=True, **kw)
+    assert isinstance(detect, CapturedDetect)
+    return detect, _detect_args(b, canvas, cuda)
+
+
+def _numpy(out):
+    return {k: v.cpu().numpy() for k, v in out._asdict().items()
+            if v is not None}
+
+
+@pytest.mark.gpu
+def test_captured_detect_equals_eager(cuda, tf32_off):
+    """The captured call against detect.eager on the same inputs, float32
+    at 128x416, pose on: every field equal (the same kernels in the same
+    order); each replay adds one polling and one NMS launch."""
+    from ground_plane_polling_tpu_torch.kernels import nms_cuda
+
+    detect, args = _captured_detector(cuda)
+    want = _numpy(detect.eager(*args))
+    assert (want["scores"] > 0).any()
+    got = _numpy(detect(*args))
+    before = polling_cuda.LAUNCHES, nms_cuda.NMS_LAUNCHES
+    again = _numpy(detect(*args))
+    assert (polling_cuda.LAUNCHES, nms_cuda.NMS_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert len(detect.graphs) == 1
+    for out in (got, again):
+        for key in want:
+            np.testing.assert_array_equal(out[key], want[key], err_msg=key)
+
+
+@pytest.mark.gpu
+def test_captured_replay_makes_no_host_sync(cuda):
+    """A replay (inputs already on the card) runs under torch.cuda's sync
+    debug mode "error": no operation of the call synchronizes."""
+    detect, args = _captured_detector(cuda)
+    detect(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = detect(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.scores.shape == (2, 100)
+
+
+@pytest.mark.gpu
+def test_capture_of_a_syncing_model_raises(cuda):
+    """A model whose forward calls .item() cannot be captured: the first
+    call raises instead of carrying on eagerly, and keeps no graph."""
+    from ground_plane_polling_tpu_torch.inference import make_detect_fn
+
+    class Syncing(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            out = self.net(x)
+            out["classification"].max().item()
+            return out
+
+    model = Syncing(_seeded_detector()).to(cuda).eval()
+    detect = make_detect_fn(model, (128, 416), with_pose=True,
+                            device_preprocess=True)
+    args = _detect_args(1, (128, 416), cuda)
+    with pytest.raises(RuntimeError):
+        detect(*args)
+    assert not detect.graphs
+    torch.cuda.synchronize()
+    assert detect.eager(*args).scores.shape == (1, 100)
+
+
+@pytest.mark.gpu
+def test_captured_calls_in_flight_keep_their_outputs(cuda):
+    """The serve pattern: the next batch is dispatched before the last one
+    is read. Each call's outputs stay its own: two different batches in a
+    row, read after both, equal their eager outputs."""
+    detect, args_a = _captured_detector(cuda)
+    args_b = _detect_args(2, (128, 416), cuda, seed=1)
+    want = [_numpy(detect.eager(*a)) for a in (args_a, args_b)]
+    detect(*args_a)  # captures
+    outs = [detect(*args_a), detect(*args_b)]
+    for got, ref in zip(outs, want):
+        got = _numpy(got)
+        for key in ref:
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    assert not np.array_equal(want[0]["boxes"], want[1]["boxes"])

@@ -132,6 +132,19 @@ def test_depthwise_wrapper_has_no_fallback():
     assert "conv2d(" not in src.replace("twin.int8_conv2d(", "")
 
 
+def test_nms_wrapper_has_no_fallback():
+    """The NMS kernels' wrapper: no try/except around the launch."""
+    src = (PORT / "kernels" / "nms_cuda.py").read_text()
+    assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE)
+
+
+def test_captured_detect_has_no_eager_fallback():
+    """A failed capture raises: the captured call catches nothing (its one
+    try only puts the launch counters back, and re-raises)."""
+    src = (PORT / "inference.py").read_text()
+    assert not re.search(r"^\s*except\b", src, re.MULTILINE)
+
+
 def test_backbones_and_host_tools_run_with_jax_blocked(tmp_path):
     """Every backbone family, int8 with depthwise sites, data preparation,
     profiling and the version check run without JAX."""
