@@ -126,16 +126,23 @@ Phases (any failure exits non-zero before the last line):
      against one process, each rank's widest conv input against its slab
      plus halo, and bf16 timed against one process.
  13. the detect call as CUDA graphs (inference.CapturedDetect), ResNet-50
-     FPN 512 at 416x1344, 21,634 planes, pose on: (a) the NMS kernels
+     FPN 512 at 416x1344, 21,634 planes, pose on: (a) the NMS kernel
      (csrc/nms.cu) against greedy_nms, the plain fixpoint, bit for bit on
-     the real candidates of a b4 bf16 call (and its first image) and on
-     the crafted cases of kernels/nms_cases.py, timed beside their bound
-     and the plain version; (b) the captured call against detect.eager in
+     the real candidates of a b4 bf16 call (and its first image), on 12
+     and 48 random sets at K 1024, 4 with 200 of 1024 valid and one in
+     30 tight clusters (every candidate reached), timed beside the bound,
+     the launch floor and the plain version; the crafted cases of
+     kernels/nms_cases.py, and its large cases against greedy_nms_serial;
+     with --against ROOT, ROOT's NMS kernel in turns (ROOT, this, this,
+     ROOT), the large cases too, and the device kernels of one call of
+     each;
+     (b) the captured call against detect.eager in
      bf16 and int8 at b1 and b4: labels and orientations equal, the float
      fields' gaps (0 unless the eager call itself does not repeat), no
      host sync in a replay (torch.cuda's sync debug mode), one polling and
      one NMS launch a replay (136 of each int8 kernel), the host's API
-     calls and the device's operations a call, ms a call in turns eager /
+     calls and the device's operations a call (with --against, also of
+     the call captured with ROOT's NMS kernel), ms a call in turns eager /
      captured / captured / eager, and the card's idle share of the call;
      (c) the captures and calls of phases 3 and 4 (run_network and serve,
      whose txts those phases hold), which must have gone through the
@@ -3360,18 +3367,29 @@ def zero_launches():
 
 
 def nms_bound_ms(scores, idx, valid, max_out):
-    """Least time of greedy NMS on these inputs: the IoU decisions this
-    data needs (each kept candidate against every later valid one) at the
-    f32 peak, and the bytes (each input read once, each output written
-    once) at the memory rate. Returns (ms, "operations" or "bytes")."""
+    """Least time of greedy NMS on these inputs: the IoU decisions the
+    result depends on (each kept candidate against every later valid one
+    up to the last candidate decided: the max_out-th kept, else the last
+    valid one) at the f32 peak, and the bytes (each candidate's box and
+    score read once up to that same candidate, a set with none valid its
+    first score; each output written once) at the memory rate. Returns
+    (ms, "operations" or "bytes")."""
     scores, idx, valid = (np.asarray(t.cpu()) for t in (scores, idx, valid))
     s, k = scores.shape
     live = scores > -np.inf
-    later = np.cumsum(live[:, ::-1], axis=1)[:, ::-1] - live  # valid i > j
-    pairs = sum(int(later[r, idx[r][valid[r]]].sum()) for r in range(s))
+    pairs, read = 0, 0
+    for r in range(s):
+        kept = idx[r][valid[r]]
+        if not len(kept):
+            read += 4
+            continue
+        stop = kept[-1] if len(kept) == max_out else \
+            np.flatnonzero(live[r])[-1]
+        upto = np.cumsum(live[r])  # valid candidates at or before i
+        pairs += int((upto[stop] - upto[kept]).sum())
+        read += (int(stop) + 1) * (16 + 4)
     ms = {"operations": NMS_OPS * pairs / PEAK_F32_OPS * 1e3,
-          "bytes": (s * k * (16 + 4) + s * max_out * (8 + 1 + 4))
-          / PEAK_BYTES * 1e3}
+          "bytes": (read + s * max_out * (8 + 1 + 4)) / PEAK_BYTES * 1e3}
     limit = max(ms, key=ms.get)
     return ms[limit], limit
 
@@ -3384,16 +3402,28 @@ def compare_nms(got, want, label):
                                       err_msg=f"{label} {name}")
 
 
-def phase13a_nms(torch, nms_cuda, model, rng, planes):
-    """The NMS kernels against the plain fixpoint on the card: the real
-    candidates of a b4 bf16 detect call (its first row as b1) and the
-    crafted cases, bit for bit; timed beside the bound and the plain
-    version."""
+def nms_device_ops(torch, fn):
+    """Device kernels of one call of fn() (torch.profiler, 5 calls, a spin
+    kernel first), or None where the traces hold no device event."""
+    kernels = device_kernels(torch, fn, reps=5)
+    return len(kernels) / 5 if kernels else None
+
+
+def phase13a_nms(torch, nms_cuda, model, rng, planes, other=None):
+    """The NMS kernel against the plain fixpoint on the card, bit for bit:
+    the real candidates of a b4 bf16 detect call (its first row as b1),
+    12 and 48 random sets at K 1024, b4 with 200 of 1024 valid, one set
+    at K 1024 in 30 tight clusters (about 30 kept, every candidate
+    reached), the crafted cases, and (against the sequential loop) the
+    large cases. Each timed beside its bound, the launch floor and the
+    plain version; with `other` (another checkout's nms_cuda), its kernel
+    in turns (other, this, this, other; outputs equal), the large cases
+    too, and the device kernels of one call of each."""
     from ground_plane_polling_tpu_torch.inference import make_detect_fn
     from ground_plane_polling_tpu_torch.kernels import nms_cases
     from ground_plane_polling_tpu_torch.ops import filtering
 
-    log("phase 13a: the NMS kernels against greedy_nms (the plain "
+    log("phase 13a: the NMS kernel against greedy_nms (the plain "
         "fixpoint) on the card, bit for bit (index, valid, score)")
     seen = []
     kernel = nms_cuda.greedy_nms
@@ -3412,31 +3442,86 @@ def phase13a_nms(torch, nms_cuda, model, rng, planes):
         nms_cuda.greedy_nms = kernel
     (boxes4, scores, max_out, thr), = seen
     assert tuple(scores.shape) == (4, 1024) and max_out == 100, scores.shape
-    rows = {}
-    for label, args in (("b1", (boxes4[:1], scores[:1], max_out, thr)),
-                        ("b4", (boxes4, scores, max_out, thr))):
+
+    def on_card(s, n_valid=None):
+        b, sc = nms_cases.random_case(np.random.RandomState(SEED + s), s=s,
+                                      n_valid=n_valid)
+        return torch.from_numpy(b).cuda(), torch.from_numpy(sc).cuda()
+
+    def turns(fn, args, reps):
+        out = {"other": [], "this": []}
+        for name in ("other", "this", "this", "other"):
+            f = other.greedy_nms if name == "other" else fn
+            out[name].append(device_ms(torch, lambda f=f: f(*args),
+                                       reps=reps))
+        log(f"    in turns, device ms: other tree {out['other'][0]:.4f}, "
+            f"this tree {out['this'][0]:.4f}, {out['this'][1]:.4f}, other "
+            f"tree {out['other'][1]:.4f}")
+        return out
+
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0), reps=20)
+    log(f"  launch floor (torch.cuda._sleep(0)): {floor_ms:.4f} device ms")
+    clustered = nms_cases.clustered_case(np.random.RandomState(SEED + 1))
+    timed = (("b1", (boxes4[:1], scores[:1])), ("b4", (boxes4, scores)),
+             ("s12", on_card(12)), ("s48", on_card(48)),
+             ("b4_valid200", on_card(4, n_valid=200)),
+             ("k1024_clustered", tuple(torch.from_numpy(a).cuda()
+                                       for a in clustered)))
+    rows = {"floor_ms": floor_ms}
+    for label, (b, sc) in timed:
+        args = (b, sc, max_out, thr)
         got = kernel(*args)
-        compare_nms(got, filtering.greedy_nms(*args), f"real {label}")
+        compare_nms(got, filtering.greedy_nms(*args), label)
         ms = device_ms(torch, lambda: kernel(*args), reps=20)
         plain_ms = cuda_ms(lambda: filtering.greedy_nms(*args), calls=10,
                            warmup=2)
-        bound, by = nms_bound_ms(args[1], got[0], got[1], max_out)
+        bound, by = nms_bound_ms(sc, got[0], got[1], max_out)
         kept = got[1].sum(dim=1).tolist()
-        valid = (args[1] > float("-inf")).sum(dim=1).tolist()
-        rows[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by, "kept": kept, "valid": valid}
-        log(f"  real candidates {label}: K {args[1].shape[1]}, valid "
-            f"{valid}, kept {kept}: equal; kernel {ms:.4f} ms (device, "
-            f"CUDA events over 20 calls queued behind a spinning kernel), "
-            f"bound {bound:.6f} ms ({by}), plain fixpoint {plain_ms:.4f} "
-            "ms (host syncs included; a record, not a yardstick)")
+        valid = (sc > float("-inf")).sum(dim=1).tolist()
+        row = rows[label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "kept": kept, "valid": valid,
+            "last_kept": [int(i[v].max()) if v.any() else -1
+                          for i, v in zip(got[0], got[1])]}
+        log(f"  {label}: S {sc.shape[0]}, K {sc.shape[1]}, valid "
+            f"{sorted(set(valid))}, kept {sorted(set(kept))}, last kept "
+            f"up to {max(row['last_kept'])}: equal; kernel {ms:.4f} ms "
+            f"(device, CUDA events over 20 calls queued behind a spinning "
+            f"kernel; launch floor {floor_ms:.4f}), bound {bound:.6f} ms "
+            f"({by}), plain fixpoint {plain_ms:.4f} ms (host syncs "
+            "included; a record, not a yardstick)")
+        if other is not None:
+            compare_nms(other.greedy_nms(*args), got, f"{label} other")
+            row["turns"] = turns(kernel, args, reps=20)
+    args = (boxes4, scores, max_out, thr)
+    rows["device_ops"] = {"this": nms_device_ops(
+        torch, lambda: kernel(*args))}
+    if other is not None:
+        rows["device_ops"]["other"] = nms_device_ops(
+            torch, lambda: other.greedy_nms(*args))
+    log(f"  device kernels a b4 call: {rows['device_ops']}")
     names = []
-    for name, boxes, sc, m, t in nms_cases.crafted_cases():
-        args = (torch.from_numpy(boxes).cuda(), torch.from_numpy(sc).cuda(),
-                m, t)
+    for name, b, sc, m, t in nms_cases.crafted_cases():
+        args = (torch.from_numpy(b).cuda(), torch.from_numpy(sc).cuda(), m,
+                t)
         compare_nms(kernel(*args), filtering.greedy_nms(*args), name)
         names.append(name)
     log("  crafted cases equal: " + ", ".join(names))
+    rows["large"] = {}
+    for name, b, sc, m, t in nms_cases.large_cases():
+        args = (torch.from_numpy(b).cuda(), torch.from_numpy(sc).cuda(), m,
+                t)
+        got = kernel(*args)
+        compare_nms(got, filtering.greedy_nms_serial(*args), name)
+        ms = device_ms(torch, lambda: kernel(*args), reps=5)
+        row = rows["large"][name] = {"ms": ms,
+                                     "kept": got[1].sum(dim=1).tolist()}
+        log(f"  large case {name}: S {b.shape[0]}, K {b.shape[1]}, max_out "
+            f"{m}, kept {row['kept'][:4]}: equal to greedy_nms_serial; "
+            f"kernel {ms:.4f} ms")
+        if other is not None:
+            compare_nms(other.greedy_nms(*args), got, f"{name} other")
+            row["turns"] = turns(kernel, args, reps=5)
     return rows
 
 
@@ -3492,11 +3577,14 @@ def float_gaps(got, want):
     return gaps
 
 
-def phase13b_captured(torch, model, scales, rng, planes):
+def phase13b_captured(torch, model, scales, rng, planes, other_nms=None):
     """The captured call against detect.eager at full width, bf16 and int8
-    at b1 and b4: equal outputs, host syncs, launches, times, idle share."""
+    at b1 and b4: equal outputs, host syncs, launches, times, idle share.
+    With `other_nms` (another checkout's nms_cuda), also the device
+    operations of the same call captured with that tree's NMS kernel."""
     from ground_plane_polling_tpu_torch.inference import (CapturedDetect,
                                                           make_detect_fn)
+    from ground_plane_polling_tpu_torch.kernels import nms_cuda
 
     log("phase 13b: the captured detect call against detect.eager, "
         f"ResNet-50 FPN 512 at {CANVAS[0]}x{CANVAS[1]}, {N_PLANES} planes, "
@@ -3549,6 +3637,19 @@ def phase13b_captured(torch, model, scales, rng, planes):
         busy = {k: p[2] for k, p in profiles.items()}
         idle = {k: (1 - busy[k] / ms[k]) if busy[k] is not None else None
                 for k in ms}
+        other_ops = None
+        if other_nms is not None:
+            kernel = nms_cuda.greedy_nms
+            nms_cuda.greedy_nms = other_nms.greedy_nms
+            try:
+                with_other = make_detect_fn(model, CANVAS, with_pose=True,
+                                            device_preprocess=True,
+                                            quant_scales=q)
+                with_other(*args)
+                other_ops = call_profile(torch,
+                                         lambda: with_other(*args))[1]
+            finally:
+                nms_cuda.greedy_nms = kernel
         valid = (got.scores > 0).sum(dim=1).tolist()
         rows[label] = {
             "capture_s": capture_s, "gaps": gaps, "eager_gaps": eager_gaps,
@@ -3557,7 +3658,8 @@ def phase13b_captured(torch, model, scales, rng, planes):
             "host_launches": {k: p[0] for k, p in profiles.items()},
             "device_ops": {k: p[1] for k, p in profiles.items()},
             "device_ms": busy, "replays_back_to_back_ms": replays_ms,
-            "idle_share": idle, "valid": valid}
+            "idle_share": idle, "valid": valid,
+            "device_ops_other_nms": other_ops}
         log(f"  {label}: first call (warm-up, capture, replay) "
             f"{capture_s:.2f} s; valid detections {valid}; labels and "
             "orientations equal; largest float gap "
@@ -3570,7 +3672,9 @@ def phase13b_captured(torch, model, scales, rng, planes):
         log(f"    host API calls that start device work a call: eager "
             f"{profiles['eager'][0]:g}, captured {profiles['captured'][0]:g};"
             f" device operations a call: eager {profiles['eager'][1]:g}, "
-            f"captured {profiles['captured'][1]:g}")
+            f"captured {profiles['captured'][1]:g}"
+            + (f", captured with the other tree's NMS {other_ops:g}"
+               if other_ops is not None else ""))
         log(f"    ms a call (host clock, {CAPTURE_CALLS} synchronized calls "
             "a block, eager / captured / captured / eager): "
             f"{turns['eager'][0]:.3f} / {turns['captured'][0]:.3f} / "
@@ -3585,10 +3689,11 @@ def phase13b_captured(torch, model, scales, rng, planes):
     return rows
 
 
-def phase13_captured(torch, nms_cuda, smi, calls):
-    """The detect call as CUDA graphs: (a) the NMS kernels, (b) the
+def phase13_captured(torch, nms_cuda, smi, calls, other_nms=None):
+    """The detect call as CUDA graphs: (a) the NMS kernel, (b) the
     captured call against detect.eager, (c) run_network and serve
-    (phases 3 and 4) through the captured call."""
+    (phases 3 and 4) through the captured call. `other_nms`: another
+    checkout's nms_cuda, timed in turns (13a) and captured (13b)."""
     from ground_plane_polling_tpu_torch.inference import place_model
     from ground_plane_polling_tpu_torch.models import quantize as tq
 
@@ -3597,11 +3702,13 @@ def phase13_captured(torch, nms_cuda, smi, calls):
     rng = np.random.RandomState(SEED + 13)
     planes = synthetic_planes(rng, N_PLANES)
     model = place_model(full_width_model(torch, SEED), dev, torch.bfloat16)
-    result = {"13a": phase13a_nms(torch, nms_cuda, model, rng, planes)}
+    result = {"13a": phase13a_nms(torch, nms_cuda, model, rng, planes,
+                                  other_nms)}
     canvases = [torch.from_numpy(rng.randint(0, 256, (1, *CANVAS, 3)).astype(
         np.uint8)).to(dev) for _ in range(INT8_CALIB_12)]
     scales = tq.collect_scales_uint8(model, canvases)
-    result["13b"] = phase13b_captured(torch, model, scales, rng, planes)
+    result["13b"] = phase13b_captured(torch, model, scales, rng, planes,
+                                      other_nms)
     log("phase 13c: run_network (phase 3) and serve (phase 4) through the "
         "captured call, their txts held as those phases hold them: "
         + "; ".join(f"phase {k}: {v['captures']} captures, {v['calls']} "
@@ -3615,9 +3722,9 @@ def phase13_captured(torch, nms_cuda, smi, calls):
 
 
 def load_int8_tree(root, alias):
-    """(kernels.int8_conv_cuda, kernels.int8_depthwise_cuda or None) of the
-    package in checkout `root`, imported under the top-level name `alias`
-    (they build into that checkout)."""
+    """(kernels.int8_conv_cuda, kernels.int8_depthwise_cuda or None,
+    kernels.nms_cuda or None) of the package in checkout `root`, imported
+    under the top-level name `alias` (they build into that checkout)."""
     import importlib
     import importlib.util
     from pathlib import Path
@@ -3632,8 +3739,11 @@ def load_int8_tree(root, alias):
     if (pkg / "kernels" / "int8_depthwise_cuda.py").exists():
         depthwise = importlib.import_module(
             f"{alias}.kernels.int8_depthwise_cuda")
+    nms = None
+    if (pkg / "kernels" / "nms_cuda.py").exists():
+        nms = importlib.import_module(f"{alias}.kernels.nms_cuda")
     return (importlib.import_module(f"{alias}.kernels.int8_conv_cuda"),
-            depthwise)
+            depthwise, nms)
 
 
 def sass_counts(lib, opcode, function):
@@ -3667,7 +3777,8 @@ def main(argv=None):
                    help="another checkout (for example the parent commit "
                    "unpacked with git archive into the gitignored "
                    "_parent_tree/): phases 8a and 10c also time its int8 "
-                   "kernels in turns with this tree's at every shape")
+                   "kernels in turns with this tree's at every shape, and "
+                   "phase 13 its NMS kernel")
     p.add_argument("--dp-cards", type=int, default=None, metavar="N",
                    help="only phases 9b and 12c, over NCCL with one rank on "
                    "each of N cards (a machine with N cards), with the DDP "
@@ -3725,10 +3836,11 @@ def main(argv=None):
         return lib, time.perf_counter() - t0, error
 
     modules = [polling_cuda, int8_conv_cuda, int8_depthwise_cuda, nms_cuda]
-    other = other_dw = None
+    other = other_dw = other_nms = None
     if args.against:
-        other, other_dw = load_int8_tree(args.against, "gpp_against")
-        modules += [m for m in (other, other_dw) if m is not None]
+        other, other_dw, other_nms = load_int8_tree(args.against,
+                                                    "gpp_against")
+        modules += [m for m in (other, other_dw, other_nms) if m is not None]
     from ground_plane_polling_tpu_torch.data import native_loader
     from ground_plane_polling_tpu_torch.kernels.nvcc_build import error_line
     from ground_plane_polling_tpu_torch.utils import eval3d_native
@@ -3777,7 +3889,7 @@ def main(argv=None):
                             native_builds)
         options = phase12_options(torch, polling_cuda, int8_conv_cuda, tmp,
                                   smi)
-    captured = phase13_captured(torch, nms_cuda, smi, calls)
+    captured = phase13_captured(torch, nms_cuda, smi, calls, other_nms)
     log(f"chip_smoke total: {time.perf_counter() - t_start:.2f} s after "
         "phase 0's device query")
     pc = int8["per_call"]
@@ -3908,10 +4020,26 @@ def main(argv=None):
         "launches_phase2": counts["NMS_LAUNCHES"],
         "b4": {k: nms["b4"][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "kept")},
+        # the launch floor (torch.cuda._sleep(0)), device ms
+        "floor_ms": nms["floor_ms"],
+        # 12 and 48 random sets at K 1024, b4 with 200 of 1024 valid,
+        # one set at K 1024 in 30 tight clusters
+        "sets": {label: {k: nms[label][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "kept")}
+            for label in ("s12", "s48", "b4_valid200", "k1024_clustered")},
+        "large_cases": nms["large"],
+        # with --against ROOT: ROOT's NMS kernel in turns with this one
+        # (other, this, this, other), device ms; the large cases' turns
+        # are under large_cases
+        "against": ({label: nms[label]["turns"] for label in (
+            "b1", "b4", "s12", "s48", "b4_valid200", "k1024_clustered")}
+            if "turns" in nms["b1"] else None),
+        "device_ops_per_call": nms["device_ops"],
         # phase 13b: the captured call against eager, per configuration
         "captured_call": {label: {k: r[k] for k in (
             "ms", "device_ms", "idle_share", "host_launches", "device_ops",
-            "host_syncs", "eager_host_syncs", "capture_s")}
+            "device_ops_other_nms", "host_syncs", "eager_host_syncs",
+            "capture_s")}
             for label, r in captured["13b"].items()},
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,8 @@ step runs on (B, ...) tensors.
 Tie-breaking follows lax.top_k (lower index first) through a stable
 descending sort. The candidate sets of a batch go through greedy NMS
 together, stacked on the batch axis, in one call of
-kernels.nms_cuda.greedy_nms: on the card the hand-written kernels
-(csrc/nms.cu, no host sync), on the CPU `greedy_nms`, the fixpoint
+kernels.nms_cuda.greedy_nms: on the card the hand-written kernel
+(csrc/nms.cu, one launch, no host sync), on the CPU `greedy_nms`, the fixpoint
 iteration of the JAX package, whose convergence test is one host sync a
 round on a card. `greedy_nms_serial` is its plain sequential reference.
 """

@@ -1005,7 +1005,7 @@ def _nms_cases():
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", _nms_cases(), ids=lambda c: c[0])
 def test_nms_kernel_matches_plain(cuda, case):
-    """The NMS kernels against the plain fixpoint on the card, on the
+    """The NMS kernel against the plain fixpoint on the card, on the
     crafted cases and at the main path's shapes (K 1024, max_out 100, b1
     and b4): index, valid and score equal in every slot; one launch."""
     from ground_plane_polling_tpu_torch.kernels import nms_cuda
@@ -1020,6 +1020,56 @@ def test_nms_kernel_matches_plain(cuda, case):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
                                       err_msg=f"{case[0]} {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sets_48", "k_16384",
+                                  "kept_past_shared_list"])
+def test_nms_kernel_large_cases_match_serial(cuda, name):
+    """The NMS kernel against the plain sequential loop on the card: 48
+    sets at K 1024, K 16,384 (past the kernel's shared-memory stage, every
+    word reached) and max_out 1,500 (kept candidates past the kernel's
+    shared list): every slot equal."""
+    from ground_plane_polling_tpu_torch.kernels import nms_cases, nms_cuda
+    from ground_plane_polling_tpu_torch.ops import filtering
+
+    case, = [c for c in nms_cases.large_cases() if c[0] == name]
+    args = _nms_inputs(case, cuda)
+    got = nms_cuda.greedy_nms(*args)
+    want = filtering.greedy_nms_serial(*args)
+    for label, g, w in zip(("idx", "valid", "score"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=f"{name} {label}")
+
+
+@pytest.mark.gpu
+def test_nms_call_is_one_kernel_and_allocates_only_its_outputs(cuda):
+    """One NMS call on the card runs one device kernel, and the memory it
+    allocates is its three outputs (no bitmask, no scratch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ground_plane_polling_tpu_torch.kernels import nms_cases, nms_cuda
+
+    boxes, scores = nms_cases.random_case(np.random.RandomState(5), s=4)
+    args = (torch.from_numpy(boxes).to(cuda),
+            torch.from_numpy(scores).to(cuda), 100, 0.5)
+    nms_cuda.greedy_nms(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a trace may lose its first device events: a spin kernel goes
+        # first and is left out
+        torch.cuda._sleep(1000)
+        out = nms_cuda.greedy_nms(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+    assert len(kernels) == 1 and "nms_kernel" in kernels[0], kernels
+    outputs = sum(t.numel() * t.element_size() for t in out)
+    # the caching allocator rounds each block up to 512 bytes
+    assert torch.cuda.max_memory_allocated() - base <= outputs + 3 * 512
 
 
 def _captured_detector(cuda, b=2, canvas=(128, 416), **kw):
