@@ -38,15 +38,25 @@ Phases (any failure exits non-zero before the last line):
      equal mAP and errors;
   7. training on a prepared split of 375x1242 frames with random boxes:
      (a) the train step at full width (ResNet-50, FPN 512, bf16 autocast,
-     augmentation, fused prepare, batch 2, 416x1344), 20 steps timed with
+     augmentation, fused prepare, batch 2, 416x1344), captured (one CUDA
+     graph, training.train.CapturedTrainStep) against step.eager in turns
+     (eager / captured / captured / eager), 20 steps of each timed with
      CUDA events after 3 warm-up steps, with img/s, peak memory, FLOPs a
-     step and finite loss terms, and no host-device synchronization in a
-     step (torch.cuda's sync debug mode); (b) 30 steps on one fixed batch, whose
+     step (on step.eager), device ms, idle share, host API calls and
+     device operations a step, finite loss terms, no host-device
+     synchronization in a step (torch.cuda's sync debug mode), and the
+     captured step fed by the loader's producer thread as fit feeds it;
+     (a') from one copied state, 5 fused bf16 steps captured and eagerly
+     under deterministic cuDNN, equal bit for bit (or within the gap
+     between two eager runs), then after the capture an lr change, a
+     restore_checkpoint and a second canvas shape (a second graph), each
+     followed by equal steps; (b) 30 steps on one fixed batch, whose
      loss must fall; (c) one float32 step of a shrunk model on the card
      and on the CPU: loss terms within rtol 1e-4, each post-clip gradient
      within 1e-3 of its tensor's norm; (d) bin/train for one epoch of 4
-     steps with the validation sweep, then --snapshot auto carries the
-     step count on.
+     steps with the validation sweep, through the captured step (one
+     capture, four calls), then --snapshot auto carries the step count
+     on.
   8. int8 (models/quantize.py, csrc/int8_conv.cu), ResNet-50 bf16 at
      416x1344, calibrated on 8 canvases: (a) at every distinct conv shape
      of the b1 forward and the P3 box tower at b4, the quantize kernel and
@@ -76,8 +86,8 @@ Phases (any failure exits non-zero before the last line):
      rank 0 writes; both log one mAP; the checkpoint resumes in one
      process) and bin/evaluate --data-parallel, float and --int8 2, equal
      to one process's, with the kernels' launches counted on each rank;
-     (c) the bf16 step with and without --remat: peak memory, step time in
-     turns, and equal float32 gradients.
+     (c) the captured bf16 step with and without --remat: the peak memory
+     of its first call, step time in turns, and equal float32 gradients.
  10. the other backbone families (tiny, VGG, DenseNet, MobileNet): (a)
      tiny, vgg16, densenet121 and mobilenet224_1.0 at full width (FPN 512,
      seeded, bf16, 416x1344, 21,634 planes) at b1 and b4, one polling
@@ -147,8 +157,8 @@ Phases (any failure exits non-zero before the last line):
      (c) the captures and calls of phases 3 and 4 (run_network and serve,
      whose txts those phases hold), which must have gone through the
      captured call.
-Every detect call on the card above is a captured call (phases 9b and 12c
-use a mesh and run eagerly). Phases 4-13 each drive their path with the
+Every detect call and every train step on the card above without a mesh
+is a captured call (phases 9a, 9b and 12c use a mesh and run eagerly). Phases 4-13 each drive their path with the
 launch counts set to 0 and fail if a kernel of the path was not launched;
 a captured call counts the launches it replays.
 
@@ -925,6 +935,9 @@ def phase6_evaluate(torch, polling_cuda, tmp, cli):
 TRAIN_BATCH = 2
 TRAIN_SIDES = (800, 1333)  # --image-min-side, --image-max-side: 416x1344
 TRAIN_WARMUP, TRAIN_TIMED = 3, 20
+EQUAL_STEPS = 5  # phase 7a': captured against eager, bit for bit
+EQUAL_SIDES = (608, 1024)  # phase 7a''s second canvas: 320x1024
+LOADER_PACED_STEPS = 12  # phase 7a: the captured step fed by the loader
 LEARN_STEPS, LEARN_LR = 30, 1e-4
 SHRUNK_STAGES, SHRUNK_FPN = (1, 1, 1, 1), 64
 
@@ -1002,21 +1015,127 @@ def host_syncs(torch, fn):
                  if "called a synchronizing" in str(w.message)]
 
 
+def state_gaps(torch, a, b):
+    """{kind: largest |a - b|} of two train states' parameters ("param"),
+    Adam's moments ("exp_avg", "exp_avg_sq") and step counts ("step"),
+    and "step_count": the difference of their step counters."""
+    def arrays(state):
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        out = {("param", n): p.detach()
+               for n, p in state.model.named_parameters()}
+        for p, s in state.optimizer.state.items():
+            out.update({(k, names[id(p)]): t for k, t in s.items()})
+        return out
+
+    got, want = arrays(a), arrays(b)
+    assert got.keys() == want.keys()
+    gaps = {"step_count": abs(a.step - b.step)}
+    for (kind, name), t in got.items():
+        gap = float((t.float() - want[kind, name].float()).abs().max())
+        gaps[kind] = max(gaps.get(kind, 0.0), gap)
+    return gaps
+
+
+def phase7a_equal(torch, loader, batches, dev, root):
+    """From one copied state, EQUAL_STEPS fused bf16 steps captured and
+    eagerly on the same batches under deterministic cuDNN (and a second
+    eager run: the gap between two eager runs), then after the capture an
+    lr change, a restore_checkpoint and a batch of a second canvas shape,
+    each followed by steps that must keep the captured state equal to the
+    eager one."""
+    from ground_plane_polling_tpu_torch.data.kitti import KittiDataset
+    from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
+    from ground_plane_polling_tpu_torch.training.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_fused_train_step, make_optimizer)
+
+    log(f"phase 7a': captured against eager from one copied state: "
+        f"{EQUAL_STEPS} fused bf16 steps at b{TRAIN_BATCH} under "
+        "deterministic cuDNN, then after the capture an lr change, a "
+        "restore_checkpoint and a second canvas shape")
+    other = KittiLoader(KittiDataset(root, "train"), batch_size=TRAIN_BATCH,
+                        augment=True, raw_batches=True, seed=SEED,
+                        device=dev, image_min_side=EQUAL_SIDES[0],
+                        image_max_side=EQUAL_SIDES[1])
+    assert other.image_shape != CANVAS, other.image_shape
+    second = next(iter(other.epoch(prefetch=0)))
+    result = {}
+    with deterministic_cudnn(torch), tempfile.TemporaryDirectory() as tmp:
+        model = train_model(torch, dev)  # the state before its first step
+        states = {k: create_train_state(m, make_optimizer(m, 1e-5))
+                  for k, m in (("captured", model),
+                               ("eager", copy.deepcopy(model)),
+                               ("eager2", copy.deepcopy(model)))}
+        del model
+        step = make_fused_train_step(loader=loader, bf16=True)
+        fns = {"captured": step, "eager": step.eager, "eager2": step.eager}
+        ckpt = None
+
+        def advance(stage, raws):
+            nonlocal ckpt
+            metrics = {k: [] for k in states}
+            for i, raw in enumerate(raws):
+                for k in states:
+                    states[k], m = fns[k](states[k], raw)
+                    metrics[k].append(torch.stack(list(m.values())))
+                if ckpt is None and states["eager"].step == 2:
+                    ckpt = save_checkpoint(tmp, states["eager"])
+            metrics = {k: torch.stack(v).float() for k, v in metrics.items()}
+            gaps = {}
+            for k in ("captured", "eager2"):
+                gaps[k] = state_gaps(torch, states[k], states["eager"])
+                gaps[k]["metrics"] = float(
+                    (metrics[k] - metrics["eager"]).abs().max())
+            got, ref = gaps["captured"], gaps["eager2"]
+            if any(got.values()):
+                # allowed only where the eager step itself does not
+                # repeat, and then within its gap
+                assert any(ref.values()), (stage, got)
+                assert all(v <= ref[k] for k, v in got.items()), (stage, got,
+                                                                   ref)
+            result[stage] = gaps
+            log(f"  {stage}: captured against eager, largest gaps "
+                + ", ".join(f"{k} {v:.3g}" for k, v in got.items())
+                + "; eager against eager: " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in ref.items()))
+
+        advance(f"{EQUAL_STEPS} steps", batches[:EQUAL_STEPS])
+        for st in states.values():
+            st.lr = 2.5e-6
+        advance("lr 1e-5 -> 2.5e-6, 1 step", batches[EQUAL_STEPS:
+                                                      EQUAL_STEPS + 1])
+        for k in states:
+            states[k] = restore_checkpoint(ckpt, states[k])
+        assert states["captured"].step == 2
+        assert states["captured"].lr == float(np.float32(1e-5))
+        advance(f"restore of {os.path.basename(ckpt)}, 1 step",
+                batches[EQUAL_STEPS + 1:EQUAL_STEPS + 2])
+        advance(f"canvas {other.image_shape[0]}x{other.image_shape[1]}, "
+                "1 step", [second])
+        assert len(step.graphs) == 2, len(step.graphs)
+        advance(f"back to {CANVAS[0]}x{CANVAS[1]}, 1 step",
+                batches[EQUAL_STEPS + 2:EQUAL_STEPS + 3])
+        assert len(step.graphs) == 2, len(step.graphs)
+    return result
+
+
 def phase7_train(torch, polling_cuda, tmp, cli, smi):
     from torch.utils.flop_counter import FlopCounterMode
 
     from ground_plane_polling_tpu_torch.data.kitti import KittiDataset
     from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
     from ground_plane_polling_tpu_torch.training.train import (
-        create_train_state, make_fused_train_step, make_optimizer,
-        make_train_step)
+        CapturedTrainStep, create_train_state, make_fused_train_step,
+        make_optimizer, make_train_step)
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     root = write_train_split(tmp, cli)
     log("phase 7a: train step, ResNet-50, FPN 512, one class, seeded, bf16 "
         f"autocast, augmentation, fused prepare, batch {TRAIN_BATCH}, "
-        f"375x1242 frames on a {CANVAS[0]}x{CANVAS[1]} canvas")
+        f"375x1242 frames on a {CANVAS[0]}x{CANVAS[1]} canvas: the captured "
+        "step (one CUDA graph) against step.eager, in turns")
     sides = dict(image_min_side=TRAIN_SIDES[0], image_max_side=TRAIN_SIDES[1])
     loader = KittiLoader(KittiDataset(root, "train"), batch_size=TRAIN_BATCH,
                          augment=True, raw_batches=True, seed=SEED,
@@ -1028,84 +1147,155 @@ def phase7_train(torch, polling_cuda, tmp, cli, smi):
     while len(batches) < n:  # host loading apart from the step's time
         batches += list(loader.epoch(prefetch=0))[:n - len(batches)]
     host_ms = (time.perf_counter() - t0) / n * 1e3
-    model = train_model(torch, dev)
-    state = create_train_state(model, make_optimizer(model, 1e-5))
     step = make_fused_train_step(loader=loader, bf16=True)
+    assert isinstance(step, CapturedTrainStep), type(step)
+    runs = {}
+    for name, fn in (("eager", step.eager), ("captured", step)):
+        model = train_model(torch, dev)
+        runs[name] = [create_train_state(model, make_optimizer(model, 1e-5)),
+                      fn]
     torch.cuda.reset_peak_memory_stats()
-    with FlopCounterMode(display=False) as flops:  # a warm-up step
-        state, _ = step(state, batches[0])
+    with FlopCounterMode(display=False) as flops:  # one eager step
+        runs["eager"][0], _ = step.eager(runs["eager"][0], batches[0])
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the captured step's first call: its step, run eagerly, and the capture
+    runs["captured"][0], _ = step(runs["captured"][0], batches[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    peak_capture = torch.cuda.max_memory_allocated()
     for raw in batches[1:TRAIN_WARMUP - 1]:
-        state, _ = step(state, raw)
+        for run in runs.values():
+            run[0], _ = run[1](run[0], raw)
     # the last warm-up step under torch.cuda's sync debug mode: where the
     # host waits for the card inside a step (a copy from pageable memory, a
     # read-back), it cannot queue ahead of the card
-    torch.cuda.synchronize()
-    (state, _), syncs = host_syncs(
-        torch, lambda: step(state, batches[TRAIN_WARMUP - 1]))
-    torch.cuda.synchronize()
-    assert not syncs, f"the train step waits for the card at {syncs}"
-    events, metrics = [], []
-    t0 = time.perf_counter()
-    for raw in batches[TRAIN_WARMUP:]:
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, m = step(state, raw)
-        stop.record()
-        events.append((start, stop))
-        metrics.append(m)
-    torch.cuda.synchronize()
-    window = time.perf_counter() - t0
-    ms = np.array([a.elapsed_time(b) for a, b in events])
-    peak = torch.cuda.max_memory_allocated()
+    syncs = {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        (run[0], _), syncs[name] = host_syncs(
+            torch, lambda run=run: run[1](run[0], batches[TRAIN_WARMUP - 1]))
+        torch.cuda.synchronize()
+        assert not syncs[name], f"the {name} step waits for the card at " \
+            f"{syncs[name]}"
+    # timed in turns: eager / captured / captured / eager, each state
+    # stepping every timed batch once, in order
+    timed = batches[TRAIN_WARMUP:]
+    half = len(timed) // 2
+    events = {name: [] for name in runs}
+    windows = dict.fromkeys(runs, 0.0)
+    metrics = []
+    for name, part in (("eager", timed[:half]), ("captured", timed[:half]),
+                       ("captured", timed[half:]), ("eager", timed[half:])):
+        run = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for raw in part:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run[0], m = run[1](run[0], raw)
+            stop.record()
+            events[name].append((start, stop))
+            metrics.append(m)
+        torch.cuda.synchronize()
+        windows[name] += time.perf_counter() - t0
+    ms = {name: np.array([a.elapsed_time(b) for a, b in ev])
+          for name, ev in events.items()}
     terms = {k: torch.stack([m[k] for m in metrics]).float().cpu().numpy()
              for k in metrics[0]}
     for k, v in terms.items():
         assert np.isfinite(v).all(), (k, v)
-    assert state.step == n
-    med, p90 = float(np.median(ms)), float(np.percentile(ms, 90))
+    assert runs["captured"][0].step == runs["eager"][0].step == n
+    assert len(step.graphs) == 1, len(step.graphs)
     step_flops = flops.get_total_flops()
-    result = {"median_ms": med, "p90_ms": p90, "host_syncs": len(syncs),
-              "img_s": TRAIN_BATCH / med * 1e3,
-              "window_img_s": TRAIN_BATCH * TRAIN_TIMED / window,
-              "peak_gib": peak / 2**30, "host_ms_per_batch": host_ms,
-              "step_tflop": step_flops / 1e12}
-    log(f"  {smi}: step median {med:.3f} ms, p90 {p90:.3f} ms (CUDA events "
-        f"around each of {TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up "
-        f"steps), {result['img_s']:.2f} img/s at the median, "
-        f"{result['window_img_s']:.2f} img/s over the window (host clock, "
-        f"synchronized); peak memory {result['peak_gib']:.3f} GiB "
-        "(max_memory_allocated)")
-    log(f"  {smi}: {result['step_tflop']:.4f} TFLOP a step (FlopCounterMode: "
-        "convolutions and matmuls, forward and backward), "
-        f"{step_flops / (med * 1e-3) / 989e12:.1%} of 989 TFLOP/s bf16 at "
-        "the median step; host loading (decode, resize, pad, draw) "
-        f"{host_ms:.1f} ms a batch, not in the step")
-    log(f"  host-device synchronizations in a step: {len(syncs)} "
-        "(torch.cuda.set_sync_debug_mode('warn') over one warm-up step)"
-        + "".join(f"; {n} at {where}" for where, n in
-                  sorted(collections.Counter(syncs).items())))
+    result = {"host_ms_per_batch": host_ms, "step_tflop": step_flops / 1e12,
+              "host_syncs": {k: len(v) for k, v in syncs.items()},
+              "capture_s": capture_s, "peak_gib": {
+                  "eager_step": peak_eager / 2**30,
+                  "captured_first_call": peak_capture / 2**30}}
+    for name, v in ms.items():
+        med = float(np.median(v))
+        result[name] = {"median_ms": med,
+                        "p90_ms": float(np.percentile(v, 90)),
+                        "img_s": TRAIN_BATCH / med * 1e3,
+                        "window_img_s": TRAIN_BATCH * len(v) / windows[name]}
+    eager, captured = result["eager"], result["captured"]
+    turns = [float(np.median(v)) for v in (
+        ms["eager"][:half], ms["captured"][:half], ms["captured"][half:],
+        ms["eager"][half:])]
+    log(f"  {smi}: step median eager {eager['median_ms']:.3f} ms, captured "
+        f"{captured['median_ms']:.3f} ms; p90 eager {eager['p90_ms']:.3f}, "
+        f"captured {captured['p90_ms']:.3f} (CUDA events around each of "
+        f"{TRAIN_TIMED} steps a variant after {TRAIN_WARMUP} warm-up steps; "
+        f"block medians eager / captured / captured / eager: "
+        + " / ".join(f"{t:.3f}" for t in turns) + "); img/s at the median "
+        f"eager {eager['img_s']:.2f}, captured {captured['img_s']:.2f}; over "
+        f"the windows (host clock, synchronized) eager "
+        f"{eager['window_img_s']:.2f}, captured "
+        f"{captured['window_img_s']:.2f}")
+    log(f"  first call of the captured step (its step, eager, and the "
+        f"capture): {capture_s:.2f} s; peak memory (max_memory_allocated) "
+        f"of an eager step {peak_eager / 2**30:.3f} GiB, of the captured "
+        f"step's first call {peak_capture / 2**30:.3f} GiB; reserved after "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB (two states, the "
+        "graph's pool)")
+    log(f"  {smi}: {result['step_tflop']:.4f} TFLOP a step (FlopCounterMode "
+        "over one step of step.eager: convolutions and matmuls, forward and "
+        f"backward), {step_flops / (captured['median_ms'] * 1e-3) / 989e12:.1%}"
+        " of 989 TFLOP/s bf16 at the captured median step; host loading "
+        f"(decode, resize, pad, draw) {host_ms:.1f} ms a batch, not in the "
+        "step")
+    log("  host-device synchronizations in a step "
+        "(torch.cuda.set_sync_debug_mode('warn') over one warm-up step): "
+        + ", ".join(f"{k} {len(v)}" for k, v in syncs.items()))
     log("  loss terms over the timed steps, first / last: " + ", ".join(
         f"{k} {v[0]:.5g} / {v[-1]:.5g}" for k, v in terms.items()))
-    # where the step's time goes: device work against the step's time
-    from torch.profiler import ProfilerActivity, profile
 
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for raw in batches[-n_prof:]:
-            state, _ = step(state, raw)
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3 / n_prof
-    result.update(device_busy_ms=busy_ms,
-                  kernels_per_step=len(on_device) / n_prof)
-    log(f"  device busy {busy_ms:.3f} ms a step (kernels and copies, "
-        f"torch.profiler over {n_prof} steps), {busy_ms / med:.1%} of the "
-        f"median step; {len(on_device) / n_prof:.0f} kernels and copies a "
-        "step")
-    del state, model, step, batches
+    # where the step's time goes: device work against the step's time
+    def stepping(run):
+        def fn():
+            run[0], _ = run[1](run[0], batches[-1])
+        return fn
+
+    for name, run in runs.items():
+        host, ops, busy = call_profile(torch, stepping(run), reps=3)
+        med = result[name]["median_ms"]
+        idle = None if busy is None else 1 - busy / med
+        result[name].update(host_api_calls=host, device_ops=ops,
+                            device_busy_ms=busy, idle_share=idle)
+        log(f"  {name}: device busy "
+            + (f"{busy:.3f} ms a step (kernels and copies, torch.profiler "
+               f"over 3 steps), idle {idle:.1%} of the median step"
+               if busy is not None else "not measured (no device events)")
+            + f"; {ops:g} device operations and {host:g} host API calls "
+            "that start device work a step")
+    # fit's pacing: the captured step fed by the loader's producer thread
+    # (prefetch 2) as fit feeds it, against the step on loaded batches
+    run = runs["captured"]
+    it = iter(loader.epoch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOADER_PACED_STEPS):
+        raw = next(it, None)
+        if raw is None:
+            it = iter(loader.epoch())
+            raw = next(it)
+        run[0], _ = step(run[0], raw)
+    torch.cuda.synchronize()
+    paced = (time.perf_counter() - t0) / LOADER_PACED_STEPS * 1e3
+    result["loader_paced_ms"] = paced
+    log(f"  fit's pacing: {paced:.2f} ms a step fed by the loader "
+        f"(producer thread, prefetch 2, {len(loader)} batches an epoch, "
+        f"{LOADER_PACED_STEPS} steps, host clock) against "
+        f"{captured['median_ms']:.2f} ms on loaded batches and "
+        f"{host_ms:.2f} ms of host loading a batch: "
+        + ("the loader paces the step" if paced > 1.1 * captured["median_ms"]
+           else "the step paces the loop"))
+    result["7a_equal"] = phase7a_equal(torch, loader, batches, dev, root)
+    del runs, step, batches
 
     log(f"phase 7b: learning check, {LEARN_STEPS} steps on one fixed batch, "
         f"no augmentation, bf16, lr {LEARN_LR:g}")
@@ -1164,7 +1354,8 @@ def phase7_train(torch, polling_cuda, tmp, cli, smi):
         f"{worst:.3e} over {len(want_g)} tensors (bound 1e-3)")
 
     log("phase 7d: bin/train on the split, bf16, augmentation: 1 epoch of 4 "
-        "steps with the validation sweep, then --snapshot auto")
+        "steps of the captured step with the validation sweep, then "
+        "--snapshot auto")
     from ground_plane_polling_tpu_torch.bin import train as train_cli
     from ground_plane_polling_tpu_torch.training.checkpoint import (
         latest_checkpoint)
@@ -1178,33 +1369,43 @@ def phase7_train(torch, polling_cuda, tmp, cli, smi):
     polling_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     buf, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err), \
+            captured_calls(CapturedTrainStep) as steps:
         state = train_cli.main(common + ["kitti", root])
     launches = polling_cuda.LAUNCHES
+    # every step of bin/train went through the captured step: one capture
+    # (one canvas shape), then replays
+    assert steps == {"captures": 1, "calls": 4}, steps
     record = buf.getvalue().strip().splitlines()[-1]
     assert launches > 0, "the validation sweep did not launch the kernel"
     # the default loader: native C++ where it builds, else cv2
     loaders = sorted({ln for ln in err.getvalue().splitlines()
                       if ln.startswith("KittiLoader:")})
-    result["7d"] = {"launches": launches, "loaders": loaders}
+    result["7d"] = {"launches": launches, "loaders": loaders,
+                    "captured_steps": steps}
     result["root"] = root
     log("  default loader of bin/train: " + "; ".join(loaders))
     assert state.step == 4, state.step
     ckpt = latest_checkpoint(snaps)
     assert ckpt and ckpt.endswith("step_00000004.pt"), ckpt
     log(f"  epoch: {time.perf_counter() - t0:.2f} s wall (init, 4 steps, "
-        f"validation, checkpoint), {launches} polling launches in the "
-        f"validation sweep; {record}")
+        f"validation, checkpoint); the captured train step: "
+        f"{steps['captures']} capture, {steps['calls']} calls (the first "
+        f"its eager step and the capture, then replays); {launches} polling "
+        f"launches in the validation sweep; {record}")
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), \
+            captured_calls(CapturedTrainStep) as steps:
         state = train_cli.main(common + ["--snapshot", "auto",
                                          "--no-evaluation", "kitti", root])
     assert state.step == 8, state.step
+    assert steps == {"captures": 1, "calls": 4}, steps
     ckpt = latest_checkpoint(snaps)
     assert ckpt.endswith("step_00000008.pt"), ckpt
-    log(f"  --snapshot auto: resumed at step 4, ended at step {state.step}, "
-        f"{os.path.basename(ckpt)} written ({time.perf_counter() - t0:.2f} "
-        "s wall)")
+    log(f"  --snapshot auto: resumed at step 4, ended at step {state.step} "
+        f"through the captured step ({steps['captures']} capture, "
+        f"{steps['calls']} calls), {os.path.basename(ckpt)} written "
+        f"({time.perf_counter() - t0:.2f} s wall)")
     log(f"  phase 7 wall: {time.perf_counter() - t_phase:.2f} s")
     return result
 
@@ -2214,45 +2415,55 @@ def dp_scaling(torch, work, ranks, world, smi):
 
 
 def phase9c_remat(torch, root, smi):
-    """The b2 bf16 step with and without --remat: peak memory, step time in
-    turns, and the f32 gradients."""
+    """The captured b2 bf16 step with and without --remat: peak memory of
+    the first call (its eager step and the capture into the graph's pool),
+    step time in turns, and the f32 gradients."""
     from ground_plane_polling_tpu_torch.training.train import (
-        create_train_state, make_fused_train_step, make_optimizer)
+        CapturedTrainStep, create_train_state, make_fused_train_step,
+        make_optimizer)
 
-    log(f"phase 9c: --remat, fused bf16 step at b{TRAIN_BATCH}: peak memory "
-        f"alone, then {REMAT_TIMED} steps after {REMAT_WARMUP} in turns")
+    log(f"phase 9c: --remat, the captured fused bf16 step at b{TRAIN_BATCH}:"
+        " peak memory alone over the first call (its eager step and the "
+        f"capture), then {REMAT_TIMED} steps after {REMAT_WARMUP} in turns")
     dev = torch.device("cuda")
     loader, batches = train_batches(torch, root, dev,
                                     REMAT_WARMUP + REMAT_TIMED)
+
     def build(remat):
         model = train_model(torch, dev, remat=remat)
-        run = [create_train_state(model, make_optimizer(model, 1e-5)),
-               make_fused_train_step(loader=loader, bf16=True)]
-        for raw in batches[:REMAT_WARMUP]:
-            run[0], _ = run[1](run[0], raw)
-        torch.cuda.synchronize()
-        return run
+        step = make_fused_train_step(loader=loader, bf16=True)
+        assert isinstance(step, CapturedTrainStep), type(step)
+        return [create_train_state(model, make_optimizer(model, 1e-5)), step]
 
     result = {}
     variants = (("plain", False), ("remat", True))
     for name, remat in variants:  # each alone on the card
         run = build(remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        run[0], _ = run[1](run[0], batches[REMAT_WARMUP])
+        run[0], _ = run[1](run[0], batches[0])
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         result[name] = {"peak_gib": peak / 2**30,
-                        "step_gib": (peak - resident) / 2**30}
+                        "step_gib": (peak - resident) / 2**30,
+                        "reserved_gib": torch.cuda.memory_reserved() / 2**30}
         del run
     runs = {name: build(remat) for name, remat in variants}
+    for raw in batches[:REMAT_WARMUP]:
+        for run in runs.values():
+            run[0], _ = run[1](run[0], raw)
+    torch.cuda.synchronize()
     ms = timed_turns(torch, runs, batches[REMAT_WARMUP:])
     for name, v in ms.items():
         result[name]["median_ms"] = float(np.median(v))
-        log(f"  {smi}: {name}: step median {np.median(v):.3f} ms (CUDA "
-            f"events, in turns); peak {result[name]['peak_gib']:.3f} GiB, "
+        log(f"  {smi}: {name}: captured step median {np.median(v):.3f} ms "
+            f"(CUDA events, in turns); first call's peak "
+            f"{result[name]['peak_gib']:.3f} GiB, "
             f"{result[name]['step_gib']:.3f} GiB above the resident state "
-            "(max_memory_allocated)")
+            f"(max_memory_allocated), {result[name]['reserved_gib']:.3f} GiB "
+            "reserved after it")
     del runs
     raw = batches[0]
     result["f32"] = compare_steps(
@@ -3331,13 +3542,15 @@ HOST_LAUNCHES = ("LaunchKernel", "GraphLaunch", "MemcpyAsync",
 
 
 @contextlib.contextmanager
-def captured_calls():
-    """Counts of CapturedDetect's captures and calls while the block runs:
+def captured_calls(cls=None):
+    """Counts of the captures and calls of `cls` (default CapturedDetect;
+    training.train.CapturedTrainStep) while the block runs:
     {"captures": n, "calls": n}."""
     from ground_plane_polling_tpu_torch.inference import CapturedDetect
 
+    cls = cls or CapturedDetect
     counts = {"captures": 0, "calls": 0}
-    call, capture = CapturedDetect.__call__, CapturedDetect._capture
+    call, capture = cls.__call__, cls._capture
 
     def counted_call(self, *args):
         counts["calls"] += 1
@@ -3347,12 +3560,11 @@ def captured_calls():
         counts["captures"] += 1
         return capture(self, *args)
 
-    CapturedDetect.__call__ = counted_call
-    CapturedDetect._capture = counted_capture
+    cls.__call__, cls._capture = counted_call, counted_capture
     try:
         yield counts
     finally:
-        CapturedDetect.__call__, CapturedDetect._capture = call, capture
+        cls.__call__, cls._capture = call, capture
 
 
 def zero_launches():

@@ -16,12 +16,14 @@ rounds and skipped after 5 attempts (at once under --once). Under --once a
 backlog larger than the cap drains over further rounds, then the service
 exits.
 
-The port's NMS reads a flag back from the card once per round, so the
-dispatch of a batch returns only after its filter stage, and the overlap is
-partial (ROADMAP A4). `--int8 [N]` calibrates int8 scales once, on the
-first N frames of the first round, before any detect call, and then runs
-every conv int8. A reference Keras .h5 is read by models/h5_import.py, its
-num_classes taken from its head widths, as run_network does.
+On a card the detect call is a CUDA graph replay
+(inference.CapturedDetect) that never reads back from the card, so the
+dispatch of a batch returns once its work is enqueued, and the card runs
+it while the previous batch is read back and written. `--int8 [N]`
+calibrates int8 scales once, on the first N frames of the first round,
+before any detect call, and then runs every conv int8. A reference Keras
+.h5 is read by models/h5_import.py, its num_classes taken from its head
+widths, as run_network does.
 """
 
 from __future__ import annotations

@@ -15,7 +15,10 @@ once where the machine has network. --snapshot auto resumes from
 the newest checkpoint under --snapshot-path. Training steps prepare each batch (augmentation, anchor
 targets) inside the step (--fused-prepare, the default) or in the loader's
 producer thread (--no-fused-prepare); the validation sweep runs the
-detector, polling kernel included, after each epoch.
+detector, polling kernel included, after each epoch. On the card each step
+replays a CUDA graph captured at the first batch of its canvas shape
+(training.train.CapturedTrainStep), as the JAX CLI's step is jitted; on
+the CPU and with --data-parallel the step runs eagerly.
 
 Data parallel: one process per card, each launched with
 COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=r and

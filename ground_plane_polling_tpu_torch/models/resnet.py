@@ -100,7 +100,11 @@ class ResNetBackbone(nn.Module):
             for block in range(n_blocks):
                 fn = getattr(self, f"stage{stage + 1}_block{block + 1}")
                 if self.remat and torch.is_grad_enabled():
-                    x = checkpoint(fn, x, use_reentrant=False)
+                    # the blocks draw no random numbers, so the recompute
+                    # keeps no RNG state (nothing is read from the card's
+                    # generator while a train step is captured)
+                    x = checkpoint(fn, x, use_reentrant=False,
+                                   preserve_rng_state=False)
                 else:
                     x = fn(x)
             outputs.append(x)

@@ -157,9 +157,37 @@ def prune_checkpoints(ckpt_dir: str, keep: int = 5) -> int:
     return len(old)
 
 
+def _load_optimizer(optimizer, saved: dict) -> None:
+    """Load the optimizer state dict `saved` into `optimizer` in place: the
+    live moments, step counts and lr tensors keep their identity (a
+    captured train step's graphs read them), and so do the live groups'
+    settings (capturable, the lr's device and dtype), so a checkpoint from
+    another device or with a float lr and a CPU step count loads. Moments
+    the checkpoint lacks start afresh (zeros)."""
+    live_state, live_groups = optimizer.state, optimizer.param_groups
+    optimizer.load_state_dict(dict(saved, param_groups=[
+        {**group, **{k: v for k, v in live.items() if k != "params"}}
+        for group, live in zip(saved["param_groups"], live_groups,
+                               strict=True)]))
+    for group, live in zip(optimizer.param_groups, live_groups):
+        group["lr"] = live["lr"]
+    for p, loaded in optimizer.state.items():
+        kept = live_state[p]
+        for k, v in loaded.items():
+            if torch.is_tensor(kept.get(k)):
+                kept[k].copy_(v)
+            else:
+                kept[k] = v
+    for p, kept in live_state.items():
+        if p not in optimizer.state:
+            for t in kept.values():
+                t.zero_()
+    optimizer.state = live_state
+
+
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint file into `state` (its model and optimizer, on
-    their devices) and return it."""
+    their devices, written in place) and return it."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory (a JAX orbax checkpoint?): orbax "
@@ -171,7 +199,7 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     device = next(model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(ckpt["model"], strict=True)
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    _load_optimizer(state.optimizer, ckpt["optimizer"])
     state.step = int(ckpt["step"])
     state.lr = float(ckpt["lr"])
     return state

@@ -10,8 +10,10 @@ minimized with Adam (lr 1e-5) after clipping each gradient tensor to norm
 Adam is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`: the update
 -lr * m_hat / (sqrt(v_hat) + eps) of the JAX package's
 `optax.scale_by_adam()` followed by `-lr * u`, with no weight decay. The lr
-lives in the optimizer's param groups (`TrainState.lr`), so the plateau
-schedule changes it without a rebuild. The optimizer updates the
+is a tensor in the optimizer's param groups, as JAX's is a traced scalar:
+`TrainState.lr` writes it in place, so the plateau schedule changes it
+without a rebuild or a new capture. On a card Adam is `capturable`, its
+step counts and bias corrections on the device. The optimizer updates the
 parameters in place, which takes the place of JAX's buffer donation.
 
 `bf16` runs the forward and backward under `torch.autocast` in bfloat16
@@ -26,11 +28,18 @@ the loss normalizers counted over the whole batch (losses.global_terms).
 The clip runs after backward(), on the reduced gradients, and the
 returned metrics are the global loss terms. `state.model` stays the
 unwrapped module, so checkpoints keep its parameter names.
+
+Compiled form: where JAX jits the step, `make_train_step` and
+`make_fused_train_step` without a mesh return a `CapturedTrainStep` when
+the machine has a card: one CUDA graph per batch signature, replayed for
+a state on the card (a state on the CPU takes the eager step). On the CPU,
+and with a mesh, the step is eager. `step.eager` is the eager step either
+way (`step.eager is step` where there is no graph).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,26 +49,39 @@ from . import losses
 
 __all__ = ["TrainState", "clip_per_tensor_norm", "make_optimizer",
            "create_train_state", "compute_losses", "make_train_step",
-           "make_sharded_train_step", "make_fused_train_step"]
+           "make_sharded_train_step", "make_fused_train_step",
+           "CapturedTrainStep"]
 
 
 class TrainState:
     """step (int), model (its parameters, updated in place), optimizer and
-    lr; setting `lr` writes it into the optimizer's param groups."""
+    lr. Setting `lr` writes it into the optimizer's param groups: into the
+    lr tensor in place where make_optimizer put one (a captured step's
+    graph reads that tensor), else as a float. Reading `lr` returns the
+    host's copy of the value the groups hold (float32 on a card, as JAX's
+    lr), so neither waits for the card."""
 
     def __init__(self, model, optimizer, step: int = 0):
         self.model = model
         self.optimizer = optimizer
         self.step = step
+        self._lr = float(optimizer.param_groups[0]["lr"])  # once, at set-up
 
     @property
     def lr(self) -> float:
-        return float(self.optimizer.param_groups[0]["lr"])
+        return self._lr
 
     @lr.setter
     def lr(self, value: float):
+        value = held = float(value)
         for group in self.optimizer.param_groups:
-            group["lr"] = float(value)
+            lr = group["lr"]
+            if torch.is_tensor(lr):
+                lr.fill_(value)
+                held = float(torch.tensor(value, dtype=lr.dtype))  # host
+            else:
+                group["lr"] = value
+        self._lr = held
 
 
 def clip_per_tensor_norm(grads, max_norm: float):
@@ -75,14 +97,26 @@ def clip_per_tensor_norm(grads, max_norm: float):
 
 def make_optimizer(model, learning_rate: float = 1e-5,
                    freeze_backbone: bool = False) -> torch.optim.Adam:
-    """Adam over the model's trainable parameters. With freeze_backbone
-    the backbone's parameters get requires_grad off and stay out of the
-    optimizer (the reference's --freeze-backbone)."""
+    """Adam over the model's trainable parameters, with the lr in a tensor
+    on their device. On a card Adam is `capturable` (its step counts on
+    the device, the lr float32 as JAX's); on the CPU, where capturable
+    Adam is refused, the lr is float64, which computes the step size as
+    from a Python float. With freeze_backbone the backbone's parameters
+    get requires_grad off and stay out of the optimizer (the reference's
+    --freeze-backbone)."""
     if freeze_backbone:
         model.backbone.requires_grad_(False)
     params = [p for p in model.parameters() if p.requires_grad]
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=0.0)
+    device = params[0].device
+    on_card = device.type == "cuda"
+    lr = torch.tensor(learning_rate, device=device,
+                      dtype=torch.float32 if on_card else torch.float64)
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.0, capturable=on_card)
+    # capturable Adam also steps uncaptured on purpose (a capture's first
+    # step, the DDP step): no warning for that
+    optimizer._warned_capturable_if_run_uncaptured = True
+    return optimizer
 
 
 def create_train_state(model, optimizer,
@@ -103,7 +137,10 @@ def compute_losses(model, batch, compat_height_only: bool = False,
     (losses.global_terms)."""
     images = batch["image"].permute(0, 3, 1, 2)
     device_type = images.device.type
-    with torch.autocast(device_type, torch.bfloat16, enabled=bf16):
+    # no cache of the weights' bf16 casts: CUDA-graph capture needs it
+    # off, and the casts are the same either way
+    with torch.autocast(device_type, torch.bfloat16, enabled=bf16,
+                        cache_enabled=False):
         out = model(images)
     with torch.autocast(device_type, enabled=False):
         parts = {
@@ -148,9 +185,11 @@ class _Replicas:
 
 def _step_body(state: TrainState, batch, compat_height_only: bool,
                bf16: bool, clipnorm: float, replicas=None):
-    """Loss, gradients, per-tensor clip and the Adam update, in place.
-    Metrics are detached device tensors (read back by the caller when it
-    chooses); the clipped gradients stay in each parameter's .grad."""
+    """Loss, gradients, per-tensor clip and the Adam update, in place; the
+    metrics as detached device tensors (read back by the caller when it
+    chooses). The clipped gradients stay in each parameter's .grad. The
+    step count is the caller's to advance: a capture runs this body again
+    without taking a step."""
     state.optimizer.zero_grad(set_to_none=True)
     model, mesh = ((state.model, None) if replicas is None
                    else (replicas(state.model), replicas.mesh))
@@ -160,8 +199,22 @@ def _step_body(state: TrainState, batch, compat_height_only: bool,
     clip_per_tensor_norm([p.grad for group in state.optimizer.param_groups
                           for p in group["params"]], clipnorm)
     state.optimizer.step()
-    state.step += 1
-    return state, {k: v.detach() for k, v in metrics.items()}
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def _compiled(body, mesh):
+    """The step of `body(state, batch) -> metrics`: eager with a mesh or
+    without a card, else a CapturedTrainStep (which takes a state on the
+    CPU to the eager step)."""
+    def train_step(state: TrainState, batch):
+        metrics = body(state, batch)
+        state.step += 1
+        return state, metrics
+
+    train_step.eager = train_step
+    if mesh is not None or not torch.cuda.is_available():
+        return train_step
+    return CapturedTrainStep(train_step, body)
 
 
 def make_train_step(compat_height_only: bool = False, bf16: bool = False,
@@ -170,11 +223,11 @@ def make_train_step(compat_height_only: bool = False, bf16: bool = False,
     (the two-stage loader); with a `mesh`, batches of this rank's rows."""
     replicas = None if check_mesh(mesh) is None else _Replicas(mesh)
 
-    def train_step(state: TrainState, batch):
+    def body(state: TrainState, batch):
         return _step_body(state, batch, compat_height_only, bf16, clipnorm,
                           replicas)
 
-    return train_step
+    return _compiled(body, mesh)
 
 
 def make_sharded_train_step(mesh, compat_height_only: bool = False,
@@ -216,10 +269,127 @@ def make_fused_train_step(num_classes: Optional[int] = None,
                          "make_fused_train_step")
     augment = True if augment is None else augment
 
-    def train_step(state: TrainState, raw):
+    def body(state: TrainState, raw):
         batch = prepare_batch(raw, num_classes, augment,
                               next(state.model.parameters()).device)
         return _step_body(state, batch, compat_height_only, bf16, clipnorm,
                           replicas)
 
-    return train_step
+    return _compiled(body, mesh)
+
+
+class _StepGraph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: dict          # static batch buffers, by key
+    keys: tuple           # the metrics' names, in the order of `metrics`
+    metrics: torch.Tensor  # the metrics stacked, rewritten by each replay
+    grads: list           # the .grad of each parameter a replay writes
+    probe: int            # a parameter whose replayed .grad is not None
+
+
+class CapturedTrainStep:
+    """The train step of a state on a card as captured CUDA graphs, one per
+    batch signature (the batch's keys with each entry's shape and dtype: a
+    new canvas shape of the loader's buckets is a new signature, as under
+    JAX's jit).
+
+    The first call of a signature copies the batch into static buffers on
+    the card and runs the step eagerly on the stream it then captures on.
+    That is the call's step: it copies the constants to the card, creates
+    Adam's moments outside the graphs' memory pool and settles cuDNN's
+    choices. Then it captures the same body on the static buffers, which
+    takes no step. Every later call copies the batch into the buffers
+    (asynchronously from the loader's pinned memory), replays the graph on
+    the caller's stream, advances `state.step` and returns a copy of the
+    metrics made after the replay, so a step's metrics stay its own while
+    later steps run. All graphs share one memory pool and one side stream.
+    A capture that fails raises (an operation that syncs the host, a copy
+    from pageable memory): the step never carries on eagerly. The warm-up
+    step it took stays taken.
+
+    The graphs read the live tensors of the state they were captured for:
+    the parameters, Adam's moments and step counts, and the lr tensor.
+    `TrainState.lr` and `restore_checkpoint` write those in place, so the
+    next replay sees them; an optimizer whose state or lr tensor was
+    replaced otherwise (its own `load_state_dict`) makes the step raise.
+    After a step each parameter's .grad holds that step's clipped
+    gradient, as after the eager step.
+
+    `eager` is the eager step (for comparisons; it advances the same state
+    when given it). A state on the CPU takes it too."""
+
+    def __init__(self, eager, body):
+        self.eager = eager
+        self._body = body
+        self.graphs = {}
+        self._pool = self._stream = None
+        self._owner = None  # (model, optimizer, its state, lr tensor)
+        self._params = []
+
+    def _check(self, state):
+        opt = state.optimizer
+        owner = (state.model, opt, opt.state, opt.param_groups[0]["lr"])
+        if self._owner is None:
+            self._owner = owner
+            self._params = [p for g in opt.param_groups for p in g["params"]]
+        elif any(a is not b for a, b in zip(owner, self._owner)):
+            raise RuntimeError(
+                "this captured train step steps the model, optimizer state "
+                "and lr tensor it was captured for; a new state needs a new "
+                "step, and a checkpoint loads through restore_checkpoint, "
+                "which writes the live tensors in place")
+
+    def _capture(self, state, batch, device):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device)
+        static = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                  for k, v in batch.items()}
+        for k, s in static.items():
+            s.copy_(batch[k], non_blocking=True)
+        caller = torch.cuda.current_stream(device)
+        self._stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self._stream):
+                metrics = self._body(state, static)  # this call's step
+                state.step += 1
+                warm = [p.grad for p in self._params]
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    out = self._body(state, static)
+                    keys = tuple(out)
+                    stacked = torch.stack([out[k] for k in keys])
+                grads = [p.grad for p in self._params]
+                # the step's gradients, where the replays will write them
+                for g, w in zip(grads, warm):
+                    if g is not None:
+                        g.copy_(w)
+        finally:
+            caller.wait_stream(self._stream)
+        probe = next(i for i, g in enumerate(grads) if g is not None)
+        return _StepGraph(graph, static, keys, stacked, grads, probe), metrics
+
+    def __call__(self, state: TrainState, batch):
+        device = next(state.model.parameters()).device
+        if device.type != "cuda":
+            return self.eager(state, batch)
+        self._check(state)
+        key = tuple(sorted((k, tuple(v.shape), v.dtype)
+                           for k, v in batch.items()))
+        with torch.cuda.device(device):
+            g = self.graphs.get(key)
+            if g is None:
+                g, metrics = self._capture(state, batch, device)
+                self.graphs[key] = g
+                return state, metrics
+            for k, s in g.inputs.items():
+                s.copy_(batch[k], non_blocking=True)
+            g.graph.replay()
+            state.step += 1
+            if self._params[g.probe].grad is not g.grads[g.probe]:
+                for p, grad in zip(self._params, g.grads):
+                    p.grad = grad
+            values = g.metrics.clone()
+            return state, dict(zip(g.keys, values.unbind()))

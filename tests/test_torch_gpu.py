@@ -1,7 +1,8 @@
 """The PyTorch port on the card: its CUDA kernels against their plain
 PyTorch versions, fused against split heads, serve --once, one train
 step against the same run on the CPU, the DDP step on a 1-rank NCCL group
-against the plain step, and --remat. Every test here needs a CUDA device
+against the plain step, --remat, and the captured train step against its
+eager step. Every test here needs a CUDA device
 (`gpu` marker) and skips without one. The file imports nothing of JAX, so
 it also runs where JAX is not installed:
 
@@ -1167,3 +1168,188 @@ def test_captured_calls_in_flight_keep_their_outputs(cuda):
         for key in ref:
             np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
     assert not np.array_equal(want[0]["boxes"], want[1]["boxes"])
+
+
+# --- the captured train step (training/train.py, CapturedTrainStep) -------
+
+@pytest.fixture
+def deterministic(cuda):
+    """cuDNN's deterministic algorithms, restored after: two runs of the
+    same step then sum in the same order."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = was
+
+
+def _raw_train_batches(n, shape=(64, 224)):
+    """n raw batches of _raw_train_batch with augmentation drawn from seeds
+    0..n-1, pinned as the loader pins them."""
+    from ground_plane_polling_tpu_torch.data.augment import draw_augmentation
+
+    batches = []
+    for seed in range(n):
+        raw = _raw_train_batch(shape=shape)
+        raw.update(draw_augmentation(torch.Generator().manual_seed(seed),
+                                     raw["sizes"]))
+        batches.append({k: v.pin_memory() for k, v in raw.items()})
+    return batches
+
+
+def _train_states(cuda, n=2, freeze=False, remat=False, model=None):
+    """n train states from the same seeded shrunk detector (channels-last,
+    as bin/train places it)."""
+    from ground_plane_polling_tpu_torch.training.train import (
+        create_train_state, make_optimizer)
+
+    states = []
+    for _ in range(n):
+        net = (model or _shrunk_train_model)(cuda).to(
+            memory_format=torch.channels_last)
+        net.backbone.remat = remat
+        states.append(create_train_state(
+            net, make_optimizer(net, 1e-3, freeze_backbone=freeze)))
+    return states
+
+
+def _captured_fused_step(bf16):
+    from ground_plane_polling_tpu_torch.training.train import (
+        CapturedTrainStep, make_fused_train_step)
+
+    step = make_fused_train_step(num_classes=1, augment=True, bf16=bf16)
+    assert isinstance(step, CapturedTrainStep) and step.eager is not step
+    return step
+
+
+def _assert_same_train_state(a, b):
+    """Parameters, Adam's moments and step counts, bit for bit."""
+    assert a.step == b.step
+    for (n, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), n
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()[
+        "state"]
+    assert sa.keys() == sb.keys()
+    for i, s in sa.items():
+        for k, v in s.items():
+            assert torch.equal(v, sb[i][k]), (i, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16,freeze,remat", [
+    (False, False, False), (True, False, False), (True, True, True)],
+    ids=["float32", "bf16", "bf16_freeze_remat"])
+def test_captured_train_step_equals_eager(cuda, tf32_off, deterministic,
+                                          bf16, freeze, remat):
+    """Three fused steps captured (a warm-up step and capture, then two
+    replays) and three of step.eager from the same weights on the same
+    batches: metrics, parameters, Adam's moments and step counts bit for
+    bit (the same kernels in the same order)."""
+    captured, eager = _train_states(cuda, freeze=freeze, remat=remat)
+    step = _captured_fused_step(bf16)
+    for raw in _raw_train_batches(3):
+        captured, got = step(captured, raw)
+        eager, want = step.eager(eager, raw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        for (n, p), q in zip(captured.model.named_parameters(),
+                             eager.model.parameters()):
+            assert (p.grad is None) == (q.grad is None), n
+            assert p.grad is None or torch.equal(p.grad, q.grad), n
+    assert len(step.graphs) == 1 and captured.step == 3
+    _assert_same_train_state(captured, eager)
+
+
+@pytest.mark.gpu
+def test_captured_train_step_replay_makes_no_host_sync(cuda):
+    """A replay of the bf16 fused step (the pinned batch copied in, the
+    graph, the metrics copied out) runs under torch.cuda's sync debug mode
+    "error": nothing in it waits for the card."""
+    state, = _train_states(cuda, n=1)
+    step = _captured_fused_step(True)
+    raw = _raw_train_batches(1)[0]
+    state, _ = step(state, raw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, raw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 2
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.gpu
+def test_captured_train_step_sees_lr_and_restore(cuda, tf32_off,
+                                                 deterministic, tmp_path):
+    """After the capture, an lr change and a restore_checkpoint reach the
+    graph: the captured state stays bit-equal to an eager state given the
+    same lr change and the same checkpoint."""
+    from ground_plane_polling_tpu_torch.training.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    captured, eager = _train_states(cuda)
+    step = _captured_fused_step(False)
+    batches = _raw_train_batches(4)
+    captured, _ = step(captured, batches[0])
+    eager, _ = step.eager(eager, batches[0])
+    path = save_checkpoint(str(tmp_path / "ckpt"), eager)
+    captured.lr = eager.lr = 2.5e-4
+    for raw in batches[1:3]:
+        captured, _ = step(captured, raw)
+        eager, _ = step.eager(eager, raw)
+    _assert_same_train_state(captured, eager)
+    captured = restore_checkpoint(path, captured)
+    eager = restore_checkpoint(path, eager)
+    # the lr as the float32 tensor holds it
+    assert captured.step == 1 and captured.lr == float(np.float32(1e-3))
+    for raw in batches[2:]:
+        captured, _ = step(captured, raw)
+        eager, _ = step.eager(eager, raw)
+    assert len(step.graphs) == 1
+    _assert_same_train_state(captured, eager)
+
+
+@pytest.mark.gpu
+def test_captured_train_step_second_shape(cuda, tf32_off, deterministic):
+    """A batch of another canvas shape captures a second graph; the first
+    graph still replays its shape as the eager step runs it."""
+    captured, eager = _train_states(cuda)
+    step = _captured_fused_step(False)
+    small, large = (_raw_train_batches(2, shape) for shape in
+                    ((64, 224), (96, 256)))
+    for raw in (small[0], large[0], small[1], large[1]):
+        captured, got = step(captured, raw)
+        eager, want = step.eager(eager, raw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert len(step.graphs) == 2 and captured.step == 4
+    _assert_same_train_state(captured, eager)
+
+
+@pytest.mark.gpu
+def test_capture_of_a_syncing_train_step_raises(cuda):
+    """A model whose forward calls .item() cannot be captured: each first
+    call raises after its warm-up step instead of carrying on eagerly, and
+    keeps no graph; the card stays usable."""
+    class Syncing(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+            self.backbone = net.backbone
+
+        def forward(self, x):
+            out = self.net(x)
+            out["classification"].max().item()
+            return out
+
+    state, = _train_states(cuda, n=1,
+                           model=lambda d: Syncing(_shrunk_train_model(d)))
+    step = _captured_fused_step(False)
+    raw = _raw_train_batches(1)[0]
+    for calls in (1, 2):
+        with pytest.raises(RuntimeError):
+            step(state, raw)
+        assert not step.graphs and state.step == calls
+    torch.cuda.synchronize()
+    state, metrics = step.eager(state, raw)
+    assert state.step == 3 and torch.isfinite(metrics["loss"]).item()
