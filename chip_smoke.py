@@ -75,12 +75,24 @@ Phases (any failure exits non-zero before the last line):
      against CPU on one set of scales; (c) run_network, serve and evaluate
      with --int8, each launching the conv kernel.
   9. data parallel and --remat at phase 7's full width (ResNet-50, FPN 512,
-     416x1344, b2, augmentation): (a) a 1-rank NCCL group: the DDP-wrapped
-     fused bf16 step timed in turns with phase 7a's plain step (CUDA
-     events, 20 steps after 3), no host sync in a warm-up step, and one
-     float32 step (TF32 off) whose gradients equal the plain step's; (b)
-     two rank processes on the one card over gloo (NCCL refuses two ranks
-     on one device), each launched with a timeout and joined: the f32 and
+     416x1344, b2, augmentation): (a) a 1-rank NCCL group: the DDP fused
+     bf16 step captured (11 eager DDP steps on the side stream, the last
+     followed by the capture; training.train.CapturedTrainStep) against
+     step.eager and phase 7a's captured plain step, 20 steps each in
+     blocks eager / captured / plain / plain / captured / eager (CUDA
+     events), the capture's peak memory, no host sync in a replay (nor in
+     an eager DDP step), device busy, idle share, NCCL's device ms and
+     host API calls a step (profiler), and one float32 step (TF32 off)
+     whose gradients equal the plain step's; (a') as 7a', captured
+     against eager bit for bit from one copied state over the 11 warm-up
+     steps and 3 replays, then an lr change, a restore and a second
+     canvas shape; (d) on the same group, the captured mesh detect calls
+     (data parallel at b1 and b4, shard_spatial at b1, bf16; the outputs'
+     all-gather or the width split's exchanges inside the graph) against
+     detect.eager as 13b holds the plain call; (b) two rank processes on
+     the one card over gloo (NCCL refuses two ranks on one device), each
+     launched with a timeout and joined, whose step and detect call must
+     stay eager (gloo cannot be captured): the f32 and
      bf16 steps on one row each of the global b2 batch against the single
      process's b2 step, bin/train --data-parallel --tensorboard-dir (only
      rank 0 writes; both log one mAP; the checkpoint resumes in one
@@ -130,9 +142,10 @@ Phases (any failure exits non-zero before the last line):
      at b1 and b4, and int8 packed with its own calibration (91 conv and
      quantize launches a call; the conv kernel against its plain version
      at every shape of the tail canvas, bit for bit); (c) shard_spatial:
-     two rank processes on the one card over gloo (with --dp-cards N, N
-     over NCCL; --phase 12c: only this phase), each with a timeout and
-     joined: the b1 float32 call
+     two rank processes on the one card over gloo, whose call stays eager
+     (with --dp-cards N, N over NCCL, captured, and timed against its
+     eager call in turns; --phase 12c: only this phase), each with a
+     timeout and joined: the b1 float32 call
      against one process, each rank's widest conv input against its slab
      plus halo, and bf16 timed against one process.
  13. the detect call as CUDA graphs (inference.CapturedDetect), ResNet-50
@@ -157,8 +170,11 @@ Phases (any failure exits non-zero before the last line):
      (c) the captures and calls of phases 3 and 4 (run_network and serve,
      whose txts those phases hold), which must have gone through the
      captured call.
-Every detect call and every train step on the card above without a mesh
-is a captured call (phases 9a, 9b and 12c use a mesh and run eagerly). Phases 4-13 each drive their path with the
+Every detect call and every train step on the card above is a captured
+call, but for `step.eager` and `detect.eager` and the gloo ranks of phases
+9b and 12c, which stay eager (gloo's collectives cannot be captured); with
+--dp-cards N the ranks of 9b and 12c run the captured paths over NCCL, the
+DDP step timed against its eager step in turns. Phases 4-13 each drive their path with the
 launch counts set to 0 and fail if a kernel of the path was not launched;
 a captured call counts the launches it replays.
 
@@ -937,6 +953,7 @@ TRAIN_SIDES = (800, 1333)  # --image-min-side, --image-max-side: 416x1344
 TRAIN_WARMUP, TRAIN_TIMED = 3, 20
 EQUAL_STEPS = 5  # phase 7a': captured against eager, bit for bit
 EQUAL_SIDES = (608, 1024)  # phase 7a''s second canvas: 320x1024
+TURNS = ("eager", "captured", "captured", "eager")  # blocks, phase 7a
 LOADER_PACED_STEPS = 12  # phase 7a: the captured step fed by the loader
 LEARN_STEPS, LEARN_LR = 30, 1e-4
 SHRUNK_STAGES, SHRUNK_FPN = (1, 1, 1, 1), 64
@@ -1036,13 +1053,15 @@ def state_gaps(torch, a, b):
     return gaps
 
 
-def phase7a_equal(torch, loader, batches, dev, root):
-    """From one copied state, EQUAL_STEPS fused bf16 steps captured and
-    eagerly on the same batches under deterministic cuDNN (and a second
-    eager run: the gap between two eager runs), then after the capture an
-    lr change, a restore_checkpoint and a batch of a second canvas shape,
-    each followed by steps that must keep the captured state equal to the
-    eager one."""
+def phase7a_equal(torch, loader, batches, dev, root, mesh=None, warmup=0,
+                  steps=EQUAL_STEPS, label="7a'"):
+    """From one copied state, `steps` fused bf16 steps captured and eagerly
+    on the same batches under deterministic cuDNN (and a second eager run:
+    the gap between two eager runs), then after the capture an lr change,
+    a restore_checkpoint and a batch of a second canvas shape, each
+    followed by steps that must keep the captured state equal to the eager
+    one. With a `mesh`, the DDP step, after `warmup` steps (DDP's eager
+    warm-up, the last followed by the capture)."""
     from ground_plane_polling_tpu_torch.data.kitti import KittiDataset
     from ground_plane_polling_tpu_torch.data.pipeline import KittiLoader
     from ground_plane_polling_tpu_torch.training.checkpoint import (
@@ -1050,13 +1069,15 @@ def phase7a_equal(torch, loader, batches, dev, root):
     from ground_plane_polling_tpu_torch.training.train import (
         create_train_state, make_fused_train_step, make_optimizer)
 
-    log(f"phase 7a': captured against eager from one copied state: "
-        f"{EQUAL_STEPS} fused bf16 steps at b{TRAIN_BATCH} under "
+    log(f"phase {label}: captured against eager from one copied state: "
+        + (f"{warmup} DDP steps (eager on both sides: DDP's warm-up, the "
+           "last followed by the capture), then " if warmup else "")
+        + f"{steps} fused bf16 steps at b{TRAIN_BATCH} under "
         "deterministic cuDNN, then after the capture an lr change, a "
         "restore_checkpoint and a second canvas shape")
     other = KittiLoader(KittiDataset(root, "train"), batch_size=TRAIN_BATCH,
                         augment=True, raw_batches=True, seed=SEED,
-                        device=dev, image_min_side=EQUAL_SIDES[0],
+                        device=dev, mesh=mesh, image_min_side=EQUAL_SIDES[0],
                         image_max_side=EQUAL_SIDES[1])
     assert other.image_shape != CANVAS, other.image_shape
     second = next(iter(other.epoch(prefetch=0)))
@@ -1068,8 +1089,11 @@ def phase7a_equal(torch, loader, batches, dev, root):
                                ("eager", copy.deepcopy(model)),
                                ("eager2", copy.deepcopy(model)))}
         del model
-        step = make_fused_train_step(loader=loader, bf16=True)
-        fns = {"captured": step, "eager": step.eager, "eager2": step.eager}
+        step = make_fused_train_step(loader=loader, bf16=True, mesh=mesh)
+        # each eager state its own step: with a mesh, its own DDP wrapper
+        fns = {"captured": step, "eager": step.eager,
+               "eager2": make_fused_train_step(loader=loader, bf16=True,
+                                               mesh=mesh).eager}
         ckpt = None
 
         def advance(stage, raws):
@@ -1100,22 +1124,25 @@ def phase7a_equal(torch, loader, batches, dev, root):
                 + "; eager against eager: " + ", ".join(
                     f"{k} {v:.3g}" for k, v in ref.items()))
 
-        advance(f"{EQUAL_STEPS} steps", batches[:EQUAL_STEPS])
+        if warmup:
+            advance(f"{warmup} warm-up steps", batches[:warmup])
+            assert len(step.graphs) == 1, len(step.graphs)
+        n = warmup + steps
+        advance(f"{steps} steps", batches[warmup:n])
         for st in states.values():
             st.lr = 2.5e-6
-        advance("lr 1e-5 -> 2.5e-6, 1 step", batches[EQUAL_STEPS:
-                                                      EQUAL_STEPS + 1])
+        advance("lr 1e-5 -> 2.5e-6, 1 step", batches[n:n + 1])
         for k in states:
             states[k] = restore_checkpoint(ckpt, states[k])
         assert states["captured"].step == 2
         assert states["captured"].lr == float(np.float32(1e-5))
         advance(f"restore of {os.path.basename(ckpt)}, 1 step",
-                batches[EQUAL_STEPS + 1:EQUAL_STEPS + 2])
+                batches[n + 1:n + 2])
         advance(f"canvas {other.image_shape[0]}x{other.image_shape[1]}, "
                 "1 step", [second])
         assert len(step.graphs) == 2, len(step.graphs)
         advance(f"back to {CANVAS[0]}x{CANVAS[1]}, 1 step",
-                batches[EQUAL_STEPS + 2:EQUAL_STEPS + 3])
+                batches[n + 2:n + 3])
         assert len(step.graphs) == 2, len(step.graphs)
     return result
 
@@ -1166,9 +1193,7 @@ def phase7_train(torch, polling_cuda, tmp, cli, smi):
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     peak_capture = torch.cuda.max_memory_allocated()
-    for raw in batches[1:TRAIN_WARMUP - 1]:
-        for run in runs.values():
-            run[0], _ = run[1](run[0], raw)
+    step_all(runs, batches[1:TRAIN_WARMUP - 1])
     # the last warm-up step under torch.cuda's sync debug mode: where the
     # host waits for the card inside a step (a copy from pageable memory, a
     # read-back), it cannot queue ahead of the card
@@ -1184,30 +1209,7 @@ def phase7_train(torch, polling_cuda, tmp, cli, smi):
     # stepping every timed batch once, in order
     timed = batches[TRAIN_WARMUP:]
     half = len(timed) // 2
-    events = {name: [] for name in runs}
-    windows = dict.fromkeys(runs, 0.0)
-    metrics = []
-    for name, part in (("eager", timed[:half]), ("captured", timed[:half]),
-                       ("captured", timed[half:]), ("eager", timed[half:])):
-        run = runs[name]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for raw in part:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            run[0], m = run[1](run[0], raw)
-            stop.record()
-            events[name].append((start, stop))
-            metrics.append(m)
-        torch.cuda.synchronize()
-        windows[name] += time.perf_counter() - t0
-    ms = {name: np.array([a.elapsed_time(b) for a, b in ev])
-          for name, ev in events.items()}
-    terms = {k: torch.stack([m[k] for m in metrics]).float().cpu().numpy()
-             for k in metrics[0]}
-    for k, v in terms.items():
-        assert np.isfinite(v).all(), (k, v)
+    ms, windows, terms = block_turns(torch, runs, timed, TURNS)
     assert runs["captured"][0].step == runs["eager"][0].step == n
     assert len(step.graphs) == 1, len(step.graphs)
     step_flops = flops.get_total_flops()
@@ -1935,6 +1937,40 @@ GROUP_TIMEOUT = 300  # seconds, their process group's (GPP_DIST_INIT_TIMEOUT)
 # ranks on one card measured 6.57e-5 in two runs (PERF.md)
 DP_BF16_RTOL = 1e-3
 NO_CLIP = float("inf")
+# --dp-cards: the captured DDP step's replays against the eager DDP step
+# from one copied state under deterministic cuDNN, a step at a time. Only
+# the buckets' all-reduce may sum in another order (rounding: ~1e-7 of a
+# gradient); a stale or missing bucket reduction is off by the gradient's
+# own size. Parameters: 1% of one Adam update at lr 1e-5
+DDP_EQUAL_STEPS = 3
+DDP_GRAD_RTOL, DDP_METRIC_RTOL, DDP_PARAM_ATOL = 1e-4, 1e-5, 1e-7
+
+
+def wait_ranks(procs):
+    """Wait for the rank processes up to RANK_TIMEOUT in all, or until one
+    has failed (the others would wait in its collectives); the caller
+    kills those still running, and each rank's log (where a rank that
+    hangs writes its threads' stacks first: faulthandler) goes into the
+    failure."""
+    deadline = time.monotonic() + RANK_TIMEOUT
+    while time.monotonic() < deadline:
+        codes = [p.poll() for p in procs]
+        if None not in codes or any(codes):
+            return
+        time.sleep(0.5)
+
+
+def check_ranks(procs, logs):
+    """Every rank exited 0; else the failure holds each failed rank's
+    exit code and the end of its log."""
+    failed = []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if p.returncode != 0:
+            failed.append(f"rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    assert not failed, "\n".join(failed)
 
 
 def free_port():
@@ -2002,6 +2038,14 @@ def compare_steps(got, want, label, rtol=1e-4):
     return worst_term, worst
 
 
+def step_all(runs, batches):
+    """Each run's step over `batches`, the runs in turns batch by batch
+    (runs: {name: [state, step]}; the states advance in place)."""
+    for raw in batches:
+        for run in runs.values():
+            run[0], _ = run[1](run[0], raw)
+
+
 def timed_turns(torch, runs, batches):
     """CUDA-event ms of each run's step over `batches`, the runs in turns
     step by step: {name: [ms]}; the steps' metrics must be finite."""
@@ -2060,20 +2104,65 @@ def device_busy(torch, runs, batches):
     return out
 
 
+def block_turns(torch, runs, batches, order):
+    """Each run's steps over `batches`, the runs in blocks in `order` (a
+    name a block; each run steps every batch once, in order, over its
+    blocks): ({name: CUDA-event ms of each step}, {name: host seconds of
+    its blocks, each synchronized}, the steps' metrics on the host in the
+    order they ran). Every metric must be finite."""
+    blocks = collections.Counter(order)
+    parts = {name: list(np.array_split(np.arange(len(batches)), n))
+             for name, n in blocks.items()}
+    events = {name: [] for name in runs}
+    windows = dict.fromkeys(runs, 0.0)
+    metrics = []
+    for name in order:
+        run = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in parts[name].pop(0):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run[0], m = run[1](run[0], batches[i])
+            stop.record()
+            events[name].append((start, stop))
+            metrics.append(m)
+        torch.cuda.synchronize()
+        windows[name] += time.perf_counter() - t0
+    terms = {k: torch.stack([m[k] for m in metrics]).float().cpu().numpy()
+             for k in metrics[0]}
+    for k, v in terms.items():
+        assert np.isfinite(v).all(), (k, v)
+    return ({name: np.array([a.elapsed_time(b) for a, b in ev])
+             for name, ev in events.items()}, windows, terms)
+
+
+DDP_TURNS = ("eager", "captured", "plain", "plain", "captured", "eager")
+
+
 def phase9a_nccl(torch, root, smi):
-    """The DDP-wrapped fused bf16 step on a 1-rank NCCL group against the
-    plain step, in turns; its host syncs; its f32 gradients."""
+    """On a 1-rank NCCL group: the DDP fused bf16 step captured against
+    step.eager (the eager DDP step) and the captured plain step, in turns;
+    its capture's peak memory; host syncs in a replay; device busy, idle
+    share, host API calls and NCCL's device ms a step; the f32 gradients
+    of the DDP step against the plain step; then (9a') captured against
+    eager bit for bit, and (9d) the captured mesh detect calls."""
     import datetime
 
     import torch.distributed as dist
 
-    from ground_plane_polling_tpu_torch.parallel import data_parallel_mesh
+    from ground_plane_polling_tpu_torch.parallel import (data_parallel_mesh,
+                                                         shutdown)
     from ground_plane_polling_tpu_torch.training.train import (
-        create_train_state, make_fused_train_step, make_optimizer)
+        DDP_WARMUP, CapturedTrainStep, create_train_state,
+        make_fused_train_step, make_optimizer)
 
-    log(f"phase 9a: 1-rank NCCL group, DDP fused bf16 step at b"
-        f"{TRAIN_BATCH}, {DP_TIMED} steps after {DP_WARMUP}, in turns with "
-        "phase 7a's plain step")
+    log(f"phase 9a: 1-rank NCCL group, the DDP fused bf16 step at b"
+        f"{TRAIN_BATCH} captured (DDP_WARMUP {DDP_WARMUP} eager steps, the "
+        f"last followed by the capture) against step.eager and phase 7a's "
+        f"captured plain step: {DP_TIMED} steps each after the warm-up, in "
+        "blocks " + " / ".join(DDP_TURNS))
     dev = torch.device("cuda")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", world_size=1, rank=0,
@@ -2082,47 +2171,92 @@ def phase9a_nccl(torch, root, smi):
         mesh = data_parallel_mesh()
         assert dist.get_backend() == "nccl" and mesh.size == 1
         loader, batches = train_batches(torch, root, dev,
-                                        DP_WARMUP + DP_TIMED, mesh)
+                                        DDP_WARMUP + 1 + DP_TIMED, mesh)
+        step = make_fused_train_step(loader=loader, bf16=True, mesh=mesh)
+        assert isinstance(step, CapturedTrainStep), type(step)
         runs = {}
-        for name, m in (("plain", None), ("ddp", mesh)):
+        for name, fn in (("eager", step.eager), ("captured", step),
+                         ("plain", make_fused_train_step(loader=loader,
+                                                         bf16=True))):
             model = train_model(torch, dev)
             runs[name] = [create_train_state(model, make_optimizer(model,
-                                                                   1e-5)),
-                          make_fused_train_step(loader=loader, bf16=True,
-                                                mesh=m)]
-        timed_turns(torch, runs, batches[:DP_WARMUP - 1])
-        state, step = runs["ddp"]
+                                                                   1e-5)), fn]
+        step_all(runs, batches[:DDP_WARMUP - 1])
+        assert not step.graphs
+        # the captured step's DDP_WARMUP-th call, alone: its eager step
+        # and the capture
+        run = runs["captured"]
         torch.cuda.synchronize()
-        (runs["ddp"][0], _), syncs = host_syncs(
-            torch, lambda: step(state, batches[DP_WARMUP - 1]))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run[0], _ = step(run[0], batches[DDP_WARMUP - 1])
         torch.cuda.synchronize()
-        assert not syncs, f"the DDP step waits for the card at {syncs}"
-        runs["plain"][0], _ = runs["plain"][1](runs["plain"][0],
-                                               batches[DP_WARMUP - 1])
-        ms = timed_turns(torch, runs, batches[DP_WARMUP:])
+        capture_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        assert len(step.graphs) == 1, len(step.graphs)
+        for name in ("eager", "plain"):
+            runs[name][0], _ = runs[name][1](runs[name][0],
+                                             batches[DDP_WARMUP - 1])
+        syncs = {}
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            (run[0], _), syncs[name] = host_syncs(
+                torch, lambda run=run: run[1](run[0], batches[DDP_WARMUP]))
+            torch.cuda.synchronize()
+        assert not syncs["captured"], f"the captured DDP step waits for " \
+            f"the card at {syncs['captured']}"
+        assert not syncs["eager"], syncs["eager"]
+        ms = block_turns(torch, runs, batches[DDP_WARMUP + 1:], DDP_TURNS)[0]
+        assert runs["captured"][0].step == runs["eager"][0].step == len(
+            batches)
+        assert len(step.graphs) == 1, len(step.graphs)
         result = {name: {"median_ms": float(np.median(v)),
                          "p90_ms": float(np.percentile(v, 90))}
                   for name, v in ms.items()}
+        result.update(capture_s=capture_s, capture_peak_gib=peak / 2**30,
+                      host_syncs={k: len(v) for k, v in syncs.items()})
         for name, r in result.items():
-            log(f"  {smi}: {name} step median {r['median_ms']:.3f} ms, p90 "
-                f"{r['p90_ms']:.3f} ms (CUDA events, in turns)")
-        log("  host-device synchronizations in a DDP step: 0 "
-            "(torch.cuda.set_sync_debug_mode over one warm-up step)")
-        result["host_syncs"] = len(syncs)
+            if isinstance(r, dict) and "median_ms" in r:
+                log(f"  {smi}: {name} step median {r['median_ms']:.3f} ms, "
+                    f"p90 {r['p90_ms']:.3f} ms (CUDA events, blocks "
+                    + " / ".join(DDP_TURNS) + ")")
+        log(f"  the capture call (its eager DDP step and the capture): "
+            f"{capture_s:.2f} s, peak memory {peak / 2**30:.3f} GiB "
+            "(max_memory_allocated; three states on the card)")
+        log("  host-device synchronizations in a step (sync debug mode): "
+            + ", ".join(f"{k} {len(v)}" for k, v in syncs.items())
+            + " (captured: a replay)")
+
+        def stepping(run):
+            def fn():
+                run[0], _ = run[1](run[0], batches[-1])
+            return fn
+
         busy_runs = device_busy(torch, runs, batches[-3:])
-        for name, (busy, nccl, kernels, enqueue, _) in busy_runs.items():
-            result[name].update(device_busy_ms=busy, nccl_ms=nccl,
-                                kernels=kernels, enqueue_ms=enqueue)
-            log(f"  {name}: device busy {busy:.3f} ms a step summed over "
-                f"streams, {nccl:.3f} of it NCCL's kernels, {kernels:.0f} "
-                "kernels and copies a step (torch.profiler over 3 steps); "
-                f"the host enqueues a step in {enqueue:.3f} ms (host clock "
-                "over 3 steps before the synchronize)")
-        more = busy_runs["ddp"][4].copy()
+        for name, run in runs.items():
+            host, ops, busy = call_profile(torch, stepping(run), reps=3)
+            med = result[name]["median_ms"]
+            _, nccl, _, enqueue, _ = busy_runs[name]
+            result[name].update(
+                host_api_calls=host, device_ops=ops, device_busy_ms=busy,
+                idle_share=None if busy is None else 1 - busy / med,
+                nccl_ms=nccl, enqueue_ms=enqueue)
+            log(f"  {name}: device busy "
+                + (f"{busy:.3f} ms a step, idle {1 - busy / med:.1%} of the "
+                   "median step" if busy is not None else "not measured")
+                + f"; {nccl:.3f} ms of NCCL's kernels; {ops:g} device "
+                f"operations and {host:g} host API calls that start device "
+                f"work a step (torch.profiler over 3 steps); the host "
+                f"returns from a step in {enqueue:.3f} ms")
+        more = busy_runs["eager"][4].copy()
         more.subtract(busy_runs["plain"][4])
         log("  device ms a step that DDP adds, by kernel or copy: " + "; ".join(
             f"{k[:60]} {v:+.3f}" for k, v in more.most_common(4)))
-        del runs
+        del runs, step, fn
+        result["9a_equal"] = phase7a_equal(
+            torch, loader, batches, dev, root, mesh=mesh, warmup=DDP_WARMUP,
+            steps=3, label="9a'")
+        result["9d"] = phase9d_detect(torch, mesh, smi)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         raw = batches[0]
@@ -2131,8 +2265,42 @@ def phase9a_nccl(torch, root, smi):
             one_step(torch, dev, loader, raw, False),
             "f32 step, TF32 off: DDP (1-rank NCCL) against plain, post-clip")
     finally:
-        dist.destroy_process_group()
+        shutdown()
     return result
+
+
+MESH_DETECT = (("data_parallel b1", 1, False), ("data_parallel b4", 4, False),
+               ("shard_spatial b1", 1, True))
+
+
+def phase9d_detect(torch, mesh, smi):
+    """The mesh detect calls on 9a's 1-rank NCCL group, captured against
+    detect.eager: data parallel at b1 and b4, shard_spatial at b1, bf16,
+    ResNet-50 FPN 512 at 416x1344, 21,634 planes, pose on."""
+    from ground_plane_polling_tpu_torch.inference import (CapturedDetect,
+                                                          make_detect_fn,
+                                                          place_model)
+
+    log("phase 9d: the captured mesh detect calls on the 1-rank NCCL group "
+        "(the outputs' all-gather, or the width split's exchanges, inside "
+        "the graph) against detect.eager: "
+        + ", ".join(label for label, _, _ in MESH_DETECT) + ", bf16")
+    dev = mesh.device
+    rng = np.random.RandomState(SEED + 9)
+    planes = synthetic_planes(rng, N_PLANES)
+    model = place_model(full_width_model(torch, SEED), dev, torch.bfloat16)
+    rows = {}
+    for label, b, spatial in MESH_DETECT:
+        detect = make_detect_fn(model, CANVAS, with_pose=True,
+                                device_preprocess=True, mesh=mesh,
+                                shard_spatial=spatial)
+        assert isinstance(detect, CapturedDetect), type(detect)
+        rows[label] = held_captured(
+            torch, detect, detect_inputs(torch, rng, b, dev, planes), label)
+        if spatial:
+            rows[label]["convs"] = len(detect.spatial.last.windows)
+    log(f"  {smi}")
+    return rows
 
 
 def grad_dtype(backend):
@@ -2157,11 +2325,11 @@ def deterministic_cudnn(torch):
         torch.backends.cudnn.deterministic = was
 
 
-def dp_train_args(work, extra=(), batch=TRAIN_BATCH):
-    """bin/train on phase 7d's split: 1 epoch of 2 steps, bf16,
+def dp_train_args(work, extra=(), batch=TRAIN_BATCH, steps=2):
+    """bin/train on phase 7d's split: 1 epoch of `steps` steps, bf16,
     augmentation, the validation sweep."""
     return (["--batch-size", str(batch), "--epochs", "1", "--steps",
-             "2", "--bf16", "--random-transform", "--device", "cuda",
+             str(steps), "--bf16", "--random-transform", "--device", "cuda",
              "--snapshot-path", os.path.join(work, "dp_snaps"),
              "--log-path", os.path.join(work, "dp_log.jsonl"),
              "--tensorboard-dir", os.path.join(work, "dp_tb"),
@@ -2175,12 +2343,162 @@ def dp_evaluate_args(work, extra=()):
             "--device", "cuda"] + list(extra)
 
 
+def check_compiled_form(backend, fn):
+    """A rank's mesh step or detect function `fn` as `backend` gets it:
+    captured over NCCL (CapturedTrainStep, CapturedDetect), eager over
+    gloo (`fn.eager is fn`); returns its class name, or "eager"."""
+    from ground_plane_polling_tpu_torch.inference import CapturedDetect
+    from ground_plane_polling_tpu_torch.training.train import (
+        CapturedTrainStep)
+
+    if backend == "gloo":
+        assert fn.eager is fn, type(fn)
+        return "eager"
+    assert isinstance(fn, (CapturedTrainStep, CapturedDetect)), type(fn)
+    return type(fn).__name__
+
+
+def sync_state(torch, dst, src):
+    """dst's parameters, Adam's moments and step counts and its step
+    counter set to src's, in place (a captured step's graph reads dst's
+    tensors where they are)."""
+    pairs = list(zip(dst.model.named_parameters(),
+                     src.model.named_parameters()))
+    assert all(a == b for (a, _), (b, _) in pairs)
+    with torch.no_grad():
+        for (_, pd), (_, ps) in pairs:
+            pd.copy_(ps)
+            held = src.optimizer.state[ps]
+            for k, t in dst.optimizer.state[pd].items():
+                t.copy_(held[k])
+    dst.step = src.step
+
+
+def replicas_equal(torch, mesh, tensors):
+    """Asserts that every rank of the mesh holds `tensors` alike: each
+    one's float64 sum and sum of magnitudes, all-gathered over the group
+    and compared (DDP keeps the replicas equal bit for bit). Returns how
+    many tensors were checked."""
+    import torch.distributed as dist
+
+    sums = torch.stack([torch.stack([t.double().sum(), t.double().abs().sum()])
+                        for t in tensors]).flatten()
+    every = [torch.empty_like(sums) for _ in range(mesh.size)]
+    dist.all_gather(every, sums, group=mesh.group)
+    for r, other in enumerate(every):
+        assert torch.equal(other, sums), (
+            f"rank {r}'s checksums differ from rank {mesh.rank}'s in "
+            f"{int((other != sums).sum())} of {sums.numel()}")
+    return len(tensors)
+
+
+def ddp_equal(torch, root, mesh, world):
+    """The captured DDP bf16 step against step.eager, one row a rank, from
+    one seeded state under deterministic cuDNN: DDP's warm-up (eager on
+    both sides, the last step followed by the capture), then
+    DDP_EQUAL_STEPS steps, each from the eager state copied into the
+    captured one, so that a step's gaps are its own: the replay's metrics,
+    its reduced and clipped gradients and the state after it against the
+    eager DDP step's. Then every rank's captured parameters and gradients
+    are checked alike across the ranks. The step is released after."""
+    from ground_plane_polling_tpu_torch.training.train import (
+        DDP_WARMUP, create_train_state, make_fused_train_step,
+        make_optimizer)
+
+    loader, batches = train_batches(torch, root, mesh.device,
+                                    DDP_WARMUP + DDP_EQUAL_STEPS, mesh, world)
+    with deterministic_cudnn(torch):
+        step = make_fused_train_step(loader=loader, bf16=True, mesh=mesh)
+        model = train_model(torch, mesh.device)
+        twin = copy.deepcopy(model)
+        runs = {"captured": [create_train_state(
+                    model, make_optimizer(model, 1e-5)), step],
+                "eager": [create_train_state(
+                    twin, make_optimizer(twin, 1e-5)), step.eager]}
+        del model, twin
+        step_all(runs, batches[:DDP_WARMUP])
+        assert len(step.graphs) == 1, len(step.graphs)
+        gaps = []
+        for raw in batches[DDP_WARMUP:]:
+            sync_state(torch, runs["captured"][0], runs["eager"][0])
+            metrics = {}
+            for name, run in runs.items():
+                run[0], metrics[name] = run[1](run[0], raw)
+            got, want = runs["captured"][0], runs["eager"][0]
+            grad = 0.0
+            for (_, pg), (_, pw) in zip(got.model.named_parameters(),
+                                        want.model.named_parameters()):
+                assert (pg.grad is None) == (pw.grad is None)
+                if pw.grad is None:
+                    continue
+                gap = float((pg.grad - pw.grad).abs().max())
+                grad = max(grad, gap / max(float(pw.grad.norm()), 1e-30))
+            metric = max(abs(float(metrics["captured"][k]) - float(v))
+                         / max(abs(float(v)), 1e-30)
+                         for k, v in metrics["eager"].items())
+            gaps.append({"grads": grad, "metrics": metric,
+                         **state_gaps(torch, got, want)})
+        state = runs["captured"][0]
+        checked = replicas_equal(torch, mesh, [
+            t for p in state.model.parameters() for t in (p.detach(), p.grad)
+            if t is not None])
+        step.release()
+    for g in gaps:
+        assert (g["grads"] <= DDP_GRAD_RTOL
+                and g["metrics"] <= DDP_METRIC_RTOL
+                and g["param"] <= DDP_PARAM_ATOL and g["step"] == 0
+                and g["step_count"] == 0), gaps
+    return {"gaps": gaps, "replicas_checked": checked,
+            "bit_equal": not any(v for g in gaps for v in g.values())}
+
+
+def ddp_turns(torch, root, mesh, world):
+    """The captured DDP bf16 step against its eager step, one row a rank,
+    in blocks eager / captured / captured / eager after DDP's warm-up (the
+    last warm-up step followed by the capture): each step's ms; then the
+    captured state's parameters and gradients checked alike on every rank.
+    The step is released after."""
+    from ground_plane_polling_tpu_torch.training.train import (
+        DDP_WARMUP, create_train_state, make_fused_train_step,
+        make_optimizer)
+
+    loader, batches = train_batches(torch, root, mesh.device,
+                                    DDP_WARMUP + DP_TIMED, mesh, world)
+    step = make_fused_train_step(loader=loader, bf16=True, mesh=mesh)
+    runs = {}
+    for name, fn in (("eager", step.eager), ("captured", step)):
+        model = train_model(torch, mesh.device)
+        runs[name] = [create_train_state(model, make_optimizer(model, 1e-5)),
+                      fn]
+    step_all(runs, batches[:DDP_WARMUP])
+    assert len(step.graphs) == 1, len(step.graphs)
+    ms = block_turns(torch, runs, batches[DDP_WARMUP:], TURNS)[0]
+    state = runs["captured"][0]
+    checked = replicas_equal(torch, mesh, [
+        t for p in state.model.parameters() for t in (p.detach(), p.grad)
+        if t is not None])
+    step.release()
+    return {"ddp_ms": ms["captured"].tolist(),
+            "ddp_eager_ms": ms["eager"].tolist(),
+            "ddp_replicas_checked": checked}
+
+
+def dp_steps(backend):
+    """bin/train --data-parallel's steps in phase 9b: over NCCL enough for
+    the captured step to capture (DDP_WARMUP eager steps) and replay
+    twice; over gloo (eager) 2."""
+    from ground_plane_polling_tpu_torch.training.train import DDP_WARMUP
+
+    return DDP_WARMUP + 2 if backend == "nccl" else 2
+
+
 def rank_worker(rank, port, work, world, backend):
     """Rank `rank` of phase 9b's `world` ranks over `backend`: the f32 (no
-    clip) and bf16 steps on its row of the global batch of `world` rows,
-    with NCCL (one card a rank) the DDP bf16 step timed, then bin/train
-    and bin/evaluate --data-parallel; what it saw goes to
-    work/rank{rank}.pt."""
+    clip) and bf16 steps on its row of the global batch of `world` rows;
+    with NCCL (one card a rank) the captured DDP bf16 step timed against
+    its eager step in turns and held against it (ddp_equal); then
+    bin/train and bin/evaluate --data-parallel, their captured steps and
+    calls counted; what it saw goes to work/rank{rank}.pt."""
     import torch
 
     from ground_plane_polling_tpu_torch.bin import evaluate
@@ -2188,15 +2506,16 @@ def rank_worker(rank, port, work, world, backend):
     from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
                                                         polling_cuda)
     from ground_plane_polling_tpu_torch.parallel import (data_parallel_mesh,
-                                                         initialize)
-
+                                                         initialize,
+                                                         shutdown)
     from ground_plane_polling_tpu_torch.training.train import (
-        create_train_state, make_fused_train_step, make_optimizer)
+        CapturedTrainStep, make_fused_train_step)
 
     initialize(f"localhost:{port}", world, rank, backend=backend)
     mesh = data_parallel_mesh()
     dev = mesh.device
-    out = {"device": str(dev)}
+    out = {"device": str(dev), "compiled": check_compiled_form(
+        backend, make_fused_train_step(num_classes=1, mesh=mesh))}
     root = os.path.join(work, "kitti_train")
     loader, (raw,) = train_batches(torch, root, dev, 1, mesh, world)
     out["rows"] = int(raw["images"].shape[0])
@@ -2209,41 +2528,39 @@ def rank_worker(rank, port, work, world, backend):
     out["bf16"] = one_step(torch, dev, loader, raw, True, mesh)[0]
     out["steps_s"] = time.perf_counter() - t0
     if backend == "nccl":
-        loader, batches = train_batches(torch, root, dev,
-                                        DP_WARMUP + DP_TIMED, mesh, world)
-        model = train_model(torch, dev)
-        run = [create_train_state(model, make_optimizer(model, 1e-5)),
-               make_fused_train_step(loader=loader, bf16=True, mesh=mesh)]
-        timed_turns(torch, {"ddp": run}, batches[:DP_WARMUP])
-        out["ddp_ms"] = timed_turns(torch, {"ddp": run},
-                                    batches[DP_WARMUP:])["ddp"].tolist()
-        del run, model
+        out.update(ddp_turns(torch, root, mesh, world))
+        out["ddp_equal"] = ddp_equal(torch, root, mesh, world)
 
     polling_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), captured_calls(
+            CapturedTrainStep) as steps, captured_calls() as calls:
         state = train_cli.main(dp_train_args(work, ["--data-parallel"],
-                                             world))
+                                             world, dp_steps(backend)))
     import ast
 
     out["train"] = {"step": state.step, "launches": polling_cuda.LAUNCHES,
                     "s": time.perf_counter() - t0, "record": ast.literal_eval(
-                        buf.getvalue().strip().splitlines()[-1])}
+                        buf.getvalue().strip().splitlines()[-1]),
+                    "captured": {"step": steps, "detect": calls}}
+    del state
     for name, extra in (("float", []), ("int8", ["--int8", "2"])):
         polling_cuda.LAUNCHES = 0
         int8_conv_cuda.CONV_LAUNCHES = int8_conv_cuda.QUANTIZE_LAUNCHES = 0
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                captured_calls() as calls:
             mean_ap, errors = evaluate.main(dp_evaluate_args(
                 work, ["--data-parallel"] + extra))
         out[name] = {"mAP": mean_ap, "errors": errors,
                      "s": time.perf_counter() - t0,
                      "launches": (polling_cuda.LAUNCHES,
                                   int8_conv_cuda.CONV_LAUNCHES,
-                                  int8_conv_cuda.QUANTIZE_LAUNCHES)}
+                                  int8_conv_cuda.QUANTIZE_LAUNCHES),
+                     "captured": calls}
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
-    torch.distributed.destroy_process_group()
+    shutdown()  # the CLIs' captured steps and calls are dropped: collected
     return 0
 
 
@@ -2288,24 +2605,19 @@ def phase9b_ranks(torch, work, eval_b1, smi, world=DP_RANKS,
         with contextlib.redirect_stdout(io.StringIO()):
             want_int8 = evaluate.main(dp_evaluate_args(
                 work, ["--int8", "2", "--eval-batch", "1"]))
-        deadline = time.monotonic() + RANK_TIMEOUT
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        wait_ranks(procs)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, f) in enumerate(zip(procs, logs)):
-        f.seek(0)
-        text = f.read()
-        f.close()
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" \
-            + text[-4000:]
+    check_ranks(procs, logs)
     ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
              for r in range(world)]
     log(f"  ranks on {[r['device'] for r in ranks]}, "
-        f"{[r['rows'] for r in ranks]} rows each of the b{world} batch")
+        f"{[r['rows'] for r in ranks]} rows each of the b{world} batch; "
+        f"the train step over {backend}: "
+        f"{[r['compiled'] for r in ranks]}")
 
     result = {}
     for r, got in enumerate(ranks):
@@ -2324,19 +2636,49 @@ def phase9b_ranks(torch, work, eval_b1, smi, world=DP_RANKS,
                                       want_bf16)
     result["bf16_gap"] = bf16_gap
 
+    if backend == "nccl":
+        from ground_plane_polling_tpu_torch.training.train import DDP_WARMUP
+
+        for r, got in enumerate(ranks):
+            eq = got["ddp_equal"]
+            worst = {k: max(g[k] for g in eq["gaps"]) for k in eq["gaps"][0]}
+            result[f"ddp_equal_rank{r}"] = worst
+            log(f"  rank {r}: captured DDP step against step.eager from one "
+                f"copied state (deterministic cuDNN), {DDP_EQUAL_STEPS} "
+                f"replays after {DDP_WARMUP} eager steps, each from the "
+                f"eager state: largest gaps {worst} (bounds: gradients "
+                f"{DDP_GRAD_RTOL:g} of their norm, metrics "
+                f"{DDP_METRIC_RTOL:g}, parameters {DDP_PARAM_ATOL:g}); bit "
+                f"for bit: {eq['bit_equal']}; parameters and gradients "
+                f"alike on every rank ({eq['replicas_checked']} tensors, and "
+                f"{got['ddp_replicas_checked']} after the timed turns)")
+    steps = dp_steps(backend)
     records = [r["train"]["record"] for r in ranks]
     for r, got in enumerate(ranks):
-        assert got["train"]["step"] == 2 and got["train"]["launches"] > 0, r
+        assert got["train"]["step"] == steps, (r, got["train"]["step"])
+        assert got["train"]["launches"] > 0, r
+        counts = [got["train"]["captured"]["step"],
+                  got["train"]["captured"]["detect"],
+                  got["float"]["captured"], got["int8"]["captured"]]
+        if backend == "nccl":  # the captured step and sweep, captured calls
+            assert counts[0] == {"captures": 1, "calls": steps}, counts
+            assert all(c["captures"] >= 1 and c["calls"] >= c["captures"]
+                       for c in counts[1:]), counts
+        else:
+            assert not any(c["calls"] for c in counts), counts
+    log(f"  captures and calls of captured steps and detect calls in rank "
+        f"{len(ranks) - 1}'s CLIs (bin/train's step, its sweep, bin/evaluate "
+        f"float and --int8): {counts}")
     assert all(r["mAP"] == records[0]["mAP"] for r in records), records
     with open(os.path.join(work, "dp_log.jsonl")) as f:
         assert len(f.read().splitlines()) == 1
     assert len(os.listdir(os.path.join(work, "dp_tb"))) == 1
     snaps = os.path.join(work, "dp_snaps")
-    assert os.listdir(snaps) == ["step_00000002.pt"], os.listdir(snaps)
-    names = torch.load(os.path.join(snaps, "step_00000002.pt"),
-                       weights_only=True)["model"]
+    snap = f"step_{steps:08d}.pt"
+    assert os.listdir(snaps) == [snap], os.listdir(snaps)
+    names = torch.load(os.path.join(snaps, snap), weights_only=True)["model"]
     assert not [k for k in names if k.startswith("module.")]
-    log(f"  bin/train --data-parallel --tensorboard-dir: "
+    log(f"  bin/train --data-parallel --tensorboard-dir, {steps} steps: "
         f"{[round(r['train']['s'], 2) for r in ranks]} s a rank, polling "
         f"launches {[r['train']['launches'] for r in ranks]}, mAP "
         f"{records[0]['mAP']:.6g} on every rank; one log line, one event "
@@ -2345,9 +2687,9 @@ def phase9b_ranks(torch, work, eval_b1, smi, world=DP_RANKS,
     with contextlib.redirect_stdout(io.StringIO()):
         state = train_cli.main(dp_train_args(work, [
             "--snapshot", "auto", "--no-evaluation", "--steps", "1"], world))
-    assert state.step == 3, state.step
+    assert state.step == steps + 1, state.step
     log(f"  1-process bin/train --snapshot auto from the {world}-rank "
-        f"checkpoint: step 2 -> {state.step} "
+        f"checkpoint: step {steps} -> {state.step} "
         f"({time.perf_counter() - t1:.2f} s)")
 
     for name, want in (("float", eval_b1), ("int8", want_int8)):
@@ -2402,12 +2744,16 @@ def dp_scaling(torch, work, ranks, world, smi):
     out = {f"one_card_b{b}_ms": float(np.median(v[DP_WARMUP:]))
            for b, v in ms.items()}
     out["ranks_ddp_ms"] = [float(np.median(r["ddp_ms"])) for r in ranks]
+    out["ranks_ddp_eager_ms"] = [float(np.median(r["ddp_eager_ms"]))
+                                 for r in ranks]
     ddp = max(out["ranks_ddp_ms"])
     out["img_s"] = {"ddp": world / ddp * 1e3,
                     **{f"one_card_b{b}": b / out[f"one_card_b{b}_ms"] * 1e3
                        for b in runs}}
-    log(f"  {smi}: DDP step, 1 row on each of {world} cards: median "
-        f"{out['ranks_ddp_ms']} ms by rank ({out['img_s']['ddp']:.2f} img/s "
+    log(f"  {smi}: DDP step, 1 row on each of {world} cards: captured "
+        f"median {out['ranks_ddp_ms']} ms by rank, eager "
+        f"{out['ranks_ddp_eager_ms']} (blocks eager / captured / captured / "
+        f"eager) ({out['img_s']['ddp']:.2f} img/s captured "
         f"at the slowest); one card, plain: b1 {out['one_card_b1_ms']:.3f} "
         f"ms, b{world} {out[f'one_card_b{world}_ms']:.3f} ms (CUDA events, "
         f"{DP_TIMED} steps after {DP_WARMUP}); img/s {out['img_s']}")
@@ -2451,9 +2797,7 @@ def phase9c_remat(torch, root, smi):
                         "reserved_gib": torch.cuda.memory_reserved() / 2**30}
         del run
     runs = {name: build(remat) for name, remat in variants}
-    for raw in batches[:REMAT_WARMUP]:
-        for run in runs.values():
-            run[0], _ = run[1](run[0], raw)
+    step_all(runs, batches[:REMAT_WARMUP])
     torch.cuda.synchronize()
     ms = timed_turns(torch, runs, batches[REMAT_WARMUP:])
     for name, v in ms.items():
@@ -3371,13 +3715,14 @@ def spatial_worker(rank, port, work, world, backend):
                                                           place_model)
     from ground_plane_polling_tpu_torch.kernels import polling_cuda
     from ground_plane_polling_tpu_torch.parallel import (data_parallel_mesh,
-                                                         initialize)
+                                                         initialize,
+                                                         shutdown)
     from ground_plane_polling_tpu_torch.parallel.spatial import (
         conv_window_bound)
 
     initialize(f"localhost:{port}", world, rank, backend=backend)
     mesh = data_parallel_mesh()
-    out = {"device": str(mesh.device)}
+    out = {"device": str(mesh.device), "compiled": []}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(SEED + 12)
@@ -3389,6 +3734,7 @@ def spatial_worker(rank, port, work, world, backend):
         detect = make_detect_fn(net, CANVAS, with_pose=True,
                                 device_preprocess=True, mesh=mesh,
                                 shard_spatial=True)
+        out["compiled"].append(check_compiled_form(backend, detect))
         polling_cuda.LAUNCHES = 0
         if name == "f32":
             got = detect(*args)
@@ -3415,8 +3761,12 @@ def spatial_worker(rank, port, work, world, backend):
         out["bf16_ms"] = (time.perf_counter() - t0) / SPATIAL_TIMED * 1e3
         out["bf16_launches"] = polling_cuda.LAUNCHES
         out["bf16_scores"] = got.scores.float().cpu()
+        if detect.eager is not detect:  # captured (NCCL): in turns
+            out["bf16_turns_ms"] = call_turns(
+                torch, {"eager": detect.eager, "captured": detect}, args,
+                n=SPATIAL_TIMED)
     torch.save(out, os.path.join(work, f"spatial{rank}.pt"))
-    torch.distributed.destroy_process_group()
+    shutdown(detect)  # the f32 call is dropped: collected
     return 0
 
 
@@ -3459,20 +3809,13 @@ def phase12c_spatial(torch, polling_cuda, work, smi, world=SPATIAL_RANKS,
         env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
     try:
-        deadline = time.monotonic() + RANK_TIMEOUT
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        wait_ranks(procs)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, f) in enumerate(zip(procs, logs)):
-        f.seek(0)
-        text = f.read()
-        f.close()
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" \
-            + text[-4000:]
+    check_ranks(procs, logs)
     ranks = [torch.load(os.path.join(work, f"spatial{r}.pt"),
                         weights_only=False) for r in range(world)]
     result = {"one_process_bf16_ms": one_ms}
@@ -3487,7 +3830,9 @@ def phase12c_spatial(torch, polling_cuda, work, smi, world=SPATIAL_RANKS,
         scores = got["bf16_scores"].numpy()
         assert np.isfinite(scores).all() and (scores > 0).any(), scores
         result[f"rank{r}"] = {"gaps": gaps, "windows": w,
+                              "compiled": got["compiled"],
                               "bf16_ms": got["bf16_ms"],
+                              "bf16_turns_ms": got.get("bf16_turns_ms"),
                               "polling_launches": got["f32_launches"]
                               + got["bf16_launches"]}
         log(f"  rank {r} on {got['device']}: f32 detections equal to one "
@@ -3498,9 +3843,16 @@ def phase12c_spatial(torch, polling_cuda, work, smi, world=SPATIAL_RANKS,
             + f"; widest conv input {w['widest'][2]} columns (map "
             f"{w['widest'][0]} wide, kernel {w['widest'][1]}) against its "
             f"slab plus halo {w['bound']}, every one of {w['convs']} convs "
-            f"within its own; bf16 {got['bf16_ms']:.3f} ms per "
-            f"call (host clock over {SPATIAL_TIMED} synchronized calls) "
-            f"against one process's {one_ms:.3f}; 1 polling launch a call")
+            f"within its own; the call {got['compiled'][1]}; bf16 "
+            f"{got['bf16_ms']:.3f} ms per call (host clock over "
+            f"{SPATIAL_TIMED} synchronized calls) against one process's "
+            f"{one_ms:.3f}; 1 polling launch a call"
+            + ("; in turns eager / captured / captured / eager: " + " / ".join(
+                f"{t:.3f}" for t in (got["bf16_turns_ms"]["eager"][0],
+                                     got["bf16_turns_ms"]["captured"][0],
+                                     got["bf16_turns_ms"]["captured"][1],
+                                     got["bf16_turns_ms"]["eager"][1]))
+               + " ms" if got.get("bf16_turns_ms") else ""))
     log(f"  {smi}; phase 12c wall: {time.perf_counter() - t0:.2f} s")
     return result
 
@@ -3789,6 +4141,86 @@ def float_gaps(got, want):
     return gaps
 
 
+def held_captured(torch, detect, args, label, int8_sites=None):
+    """A CapturedDetect against its eager call on `args`: labels and
+    orientations equal, the float fields' gaps (0 unless the eager call
+    itself does not repeat bit for bit, and then within phase 3's
+    tolerances), no host sync in a replay (torch.cuda's sync debug mode),
+    one polling and one NMS launch a replay (`int8_sites` of each int8
+    kernel), host API calls and device operations a call, ms a call in
+    turns eager / captured / captured / eager, device ms and idle share."""
+    t0 = time.perf_counter()
+    detect(*args)  # warm-up and capture, then the first replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    eager = [detect.eager(*args) for _ in range(2)]
+    zero_launches()
+    got, syncs = host_syncs(torch, lambda: detect(*args))
+    torch.cuda.synchronize()
+    launches = zero_launches()
+    for key in ("labels", "orientations"):
+        np.testing.assert_array_equal(
+            getattr(got, key).cpu().numpy(),
+            getattr(eager[0], key).cpu().numpy(), err_msg=f"{label} {key}")
+    gaps = float_gaps(got, eager[0])
+    eager_gaps = float_gaps(eager[1], eager[0])
+    nonzero = {k: v for k, v in gaps.items() if v}
+    if nonzero:
+        # allowed only where the eager call itself does not repeat bit for
+        # bit, and then within phase 3's tolerances
+        assert any(eager_gaps.values()), (label, nonzero)
+        compare_detections(got, eager[0], label)
+    _, eager_syncs = host_syncs(torch, lambda: detect.eager(*args))
+    assert syncs == [], (label, syncs)
+    assert launches["LAUNCHES"] == 1 and launches["NMS_LAUNCHES"] == 1, \
+        (label, launches)
+    if int8_sites is not None:
+        assert (launches["QUANTIZE_LAUNCHES"], launches["CONV_LAUNCHES"]
+                ) == (int8_sites,) * 2, (label, launches)
+    profiles = {k: call_profile(torch, lambda fn=fn: fn(*args))
+                for k, fn in (("eager", detect.eager), ("captured", detect))}
+    replays_ms = device_ms(torch, lambda: detect(*args), reps=5)
+    turns = call_turns(torch, {"eager": detect.eager, "captured": detect},
+                       args)
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    busy = {k: p[2] for k, p in profiles.items()}
+    idle = {k: (1 - busy[k] / ms[k]) if busy[k] is not None else None
+            for k in ms}
+    valid = (got.scores > 0).sum(dim=1).tolist()
+    row = {"capture_s": capture_s, "gaps": gaps, "eager_gaps": eager_gaps,
+           "host_syncs": len(syncs), "eager_host_syncs": len(eager_syncs),
+           "launches": launches, "turns_ms": turns, "ms": ms,
+           "host_launches": {k: p[0] for k, p in profiles.items()},
+           "device_ops": {k: p[1] for k, p in profiles.items()},
+           "device_ms": busy, "replays_back_to_back_ms": replays_ms,
+           "idle_share": idle, "valid": valid}
+    log(f"  {label}: first call (warm-up, capture, replay) {capture_s:.2f} "
+        f"s; valid detections {valid}; labels and orientations equal; "
+        "largest float gap "
+        + (", ".join(f"{k} {v:.3g}" for k, v in nonzero.items())
+           + f" (eager against eager: {eager_gaps})" if nonzero
+           else "0 in every field"))
+    log(f"    host syncs in a replay {len(syncs)}, in an eager call "
+        f"{len(eager_syncs)} {eager_syncs[:3]}; launches a replay "
+        f"{launches}")
+    log(f"    host API calls that start device work a call: eager "
+        f"{profiles['eager'][0]:g}, captured {profiles['captured'][0]:g}; "
+        f"device operations a call: eager {profiles['eager'][1]:g}, "
+        f"captured {profiles['captured'][1]:g}")
+    log(f"    ms a call (host clock, {CAPTURE_CALLS} synchronized calls a "
+        "block, eager / captured / captured / eager): "
+        f"{turns['eager'][0]:.3f} / {turns['captured'][0]:.3f} / "
+        f"{turns['captured'][1]:.3f} / {turns['eager'][1]:.3f}; device ms a "
+        "call (profiler): " + ", ".join(
+            f"{k} {v:.3f}" if v is not None else f"{k} not measured"
+            for k, v in busy.items())
+        + f"; 5 replays back to back (CUDA events): {replays_ms:.3f} ms a "
+        "replay; idle share of the call: " + ", ".join(
+            f"{k} {v:.1%}" if v is not None else f"{k} not measured"
+            for k, v in idle.items()))
+    return row
+
+
 def phase13b_captured(torch, model, scales, rng, planes, other_nms=None):
     """The captured call against detect.eager at full width, bf16 and int8
     at b1 and b4: equal outputs, host syncs, launches, times, idle share.
@@ -3810,45 +4242,9 @@ def phase13b_captured(torch, model, scales, rng, planes, other_nms=None):
                                 device_preprocess=True, quant_scales=q)
         assert isinstance(detect, CapturedDetect), type(detect)
         args = detect_inputs(torch, rng, b, dev, planes)
-        t0 = time.perf_counter()
-        detect(*args)  # warm-up and capture, then the first replay
-        torch.cuda.synchronize()
-        capture_s = time.perf_counter() - t0
-        eager = [detect.eager(*args) for _ in range(2)]
-        zero_launches()
-        got, syncs = host_syncs(torch, lambda: detect(*args))
-        torch.cuda.synchronize()
-        launches = zero_launches()
-        for key in ("labels", "orientations"):
-            np.testing.assert_array_equal(
-                getattr(got, key).cpu().numpy(),
-                getattr(eager[0], key).cpu().numpy(),
-                err_msg=f"{label} {key}")
-        gaps = float_gaps(got, eager[0])
-        eager_gaps = float_gaps(eager[1], eager[0])
-        nonzero = {k: v for k, v in gaps.items() if v}
-        if nonzero:
-            # allowed only where the eager call itself does not repeat
-            # bit for bit, and then within phase 3's tolerances
-            assert any(eager_gaps.values()), (label, nonzero)
-            compare_detections(got, eager[0], label)
-        _, eager_syncs = host_syncs(torch, lambda: detect.eager(*args))
-        assert syncs == [], (label, syncs)
-        assert launches["LAUNCHES"] == 1 and launches["NMS_LAUNCHES"] == 1, \
-            (label, launches)
-        if q is not None:
-            assert (launches["QUANTIZE_LAUNCHES"], launches["CONV_LAUNCHES"]
-                    ) == (INT8_SITES[False],) * 2, (label, launches)
-        profiles = {k: call_profile(torch, lambda fn=fn: fn(*args))
-                    for k, fn in (("eager", detect.eager),
-                                  ("captured", detect))}
-        replays_ms = device_ms(torch, lambda: detect(*args), reps=5)
-        turns = call_turns(torch, {"eager": detect.eager,
-                                   "captured": detect}, args)
-        ms = {k: float(np.mean(v)) for k, v in turns.items()}
-        busy = {k: p[2] for k, p in profiles.items()}
-        idle = {k: (1 - busy[k] / ms[k]) if busy[k] is not None else None
-                for k in ms}
+        rows[label] = held_captured(
+            torch, detect, args, label,
+            None if q is None else INT8_SITES[False])
         other_ops = None
         if other_nms is not None:
             kernel = nms_cuda.greedy_nms
@@ -3862,42 +4258,9 @@ def phase13b_captured(torch, model, scales, rng, planes, other_nms=None):
                                          lambda: with_other(*args))[1]
             finally:
                 nms_cuda.greedy_nms = kernel
-        valid = (got.scores > 0).sum(dim=1).tolist()
-        rows[label] = {
-            "capture_s": capture_s, "gaps": gaps, "eager_gaps": eager_gaps,
-            "host_syncs": len(syncs), "eager_host_syncs": len(eager_syncs),
-            "launches": launches, "turns_ms": turns, "ms": ms,
-            "host_launches": {k: p[0] for k, p in profiles.items()},
-            "device_ops": {k: p[1] for k, p in profiles.items()},
-            "device_ms": busy, "replays_back_to_back_ms": replays_ms,
-            "idle_share": idle, "valid": valid,
-            "device_ops_other_nms": other_ops}
-        log(f"  {label}: first call (warm-up, capture, replay) "
-            f"{capture_s:.2f} s; valid detections {valid}; labels and "
-            "orientations equal; largest float gap "
-            + (", ".join(f"{k} {v:.3g}" for k, v in nonzero.items())
-               + f" (eager against eager: {eager_gaps})" if nonzero
-               else "0 in every field"))
-        log(f"    host syncs in a replay {len(syncs)}, in an eager call "
-            f"{len(eager_syncs)} {eager_syncs[:3]}; launches a replay "
-            f"{launches}")
-        log(f"    host API calls that start device work a call: eager "
-            f"{profiles['eager'][0]:g}, captured {profiles['captured'][0]:g};"
-            f" device operations a call: eager {profiles['eager'][1]:g}, "
-            f"captured {profiles['captured'][1]:g}"
-            + (f", captured with the other tree's NMS {other_ops:g}"
-               if other_ops is not None else ""))
-        log(f"    ms a call (host clock, {CAPTURE_CALLS} synchronized calls "
-            "a block, eager / captured / captured / eager): "
-            f"{turns['eager'][0]:.3f} / {turns['captured'][0]:.3f} / "
-            f"{turns['captured'][1]:.3f} / {turns['eager'][1]:.3f}; device "
-            "ms a call (profiler): " + ", ".join(
-                f"{k} {v:.3f}" if v is not None else f"{k} not measured"
-                for k, v in busy.items())
-            + f"; 5 replays back to back (CUDA events): {replays_ms:.3f} "
-            "ms a replay; idle share of the call: " + ", ".join(
-                f"{k} {v:.1%}" if v is not None else f"{k} not measured"
-                for k, v in idle.items()))
+            log(f"    device operations a call, captured with the other "
+                f"tree's NMS: {other_ops:g}")
+        rows[label]["device_ops_other_nms"] = other_ops
     return rows
 
 
@@ -3993,9 +4356,10 @@ def main(argv=None):
                    "phase 13 its NMS kernel")
     p.add_argument("--dp-cards", type=int, default=None, metavar="N",
                    help="only phases 9b and 12c, over NCCL with one rank on "
-                   "each of N cards (a machine with N cards), with the DDP "
-                   "step and the width-sharded b1 detect call timed "
-                   "against one card's")
+                   "each of N cards (a machine with N cards), with the "
+                   "captured DDP step and the captured width-sharded b1 "
+                   "detect call timed against their eager forms and one "
+                   "card's")
     # phase 9b's rank processes (the script starts them itself)
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
@@ -4014,9 +4378,23 @@ def main(argv=None):
     if cli_args is not None:
         return cli_worker(cli_args[0], cli_args[1:])
     if args.rank is not None:
+        import faulthandler
+
+        # a rank that hangs writes its threads' stacks to its log and exits
+        faulthandler.dump_traceback_later(RANK_TIMEOUT - 30, exit=True)
         worker = spatial_worker if args.phase == "12c" else rank_worker
-        return worker(args.rank, args.port, args.work, args.dp_cards,
-                      args.backend)
+        try:
+            return worker(args.rank, args.port, args.work, args.dp_cards,
+                          args.backend)
+        except Exception:
+            # out at once: the group's destruction at exit would wait for
+            # the captured graphs still alive
+            import traceback
+
+            traceback.print_exc()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
     from concurrent.futures import ThreadPoolExecutor
 
     from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
@@ -4128,6 +4506,12 @@ def main(argv=None):
         # phase 9b, each rank: bin/train's sweep, bin/evaluate float and
         # --int8 (polling, int8 conv, quantize)
         "launches_data_parallel": parallel["9b"]["launches"],
+        # phase 9d, a replay each: the captured data-parallel calls at b1
+        # and b4 and the captured shard_spatial call on the 1-rank NCCL
+        # group
+        "launches_mesh_captured": {
+            label: r["launches"]["LAUNCHES"]
+            for label, r in parallel["9a"]["9d"].items()},
         # phase 12, counted on each path alone: the unfused calls at b1
         # and b4, the packed calls (bf16 at b1 and b4, int8 at b1), and
         # each shard_spatial rank's f32 call and timed bf16 calls
@@ -4230,6 +4614,10 @@ def main(argv=None):
         "library_ms": None,
         "launches_per_call": 1,
         "launches_phase2": counts["NMS_LAUNCHES"],
+        # phase 9d's captured mesh calls, a replay each
+        "launches_mesh_captured": {
+            label: r["launches"]["NMS_LAUNCHES"]
+            for label, r in parallel["9a"]["9d"].items()},
         "b4": {k: nms["b4"][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "kept")},
         # the launch floor (torch.cuda._sleep(0)), device ms

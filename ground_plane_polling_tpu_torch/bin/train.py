@@ -17,8 +17,10 @@ targets) inside the step (--fused-prepare, the default) or in the loader's
 producer thread (--no-fused-prepare); the validation sweep runs the
 detector, polling kernel included, after each epoch. On the card each step
 replays a CUDA graph captured at the first batch of its canvas shape
-(training.train.CapturedTrainStep), as the JAX CLI's step is jitted; on
-the CPU and with --data-parallel the step runs eagerly.
+(training.train.CapturedTrainStep), as the JAX CLI's step is jitted;
+with --data-parallel over NCCL the first 11 steps run eagerly (DDP's
+warm-up) and the graph holds the gradients' all-reduce. On the CPU, and
+over gloo, the step runs eagerly.
 
 Data parallel: one process per card, each launched with
 COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=r and

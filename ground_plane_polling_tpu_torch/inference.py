@@ -13,13 +13,16 @@ ground_plane_polling_tpu/inference.py).
 Outputs mirror the JAX package: boxes, dims, scores, labels, orientations,
 keypoints, keyplanes, residuals, padded to `max_detections` with -1, plus
 the pose fields when `with_pose`. `make_detect_fn` fixes the image shape
-(the anchors) and the filter settings. On a card without a mesh it
-returns a `CapturedDetect`: one CUDA graph of the whole call per input
-signature, as the JAX package's jit compiles one executable per input
-shape, and no host sync between the input copy and the outputs (greedy
-NMS is a kernel, the pose solve has no SVD). On the CPU, and with a mesh,
-the call runs eagerly. Unlike the JAX package there is no plane-count
-rule: CUDA tensors always go through the polling kernel.
+(the anchors) and the filter settings. On a card it returns a
+`CapturedDetect`: one CUDA graph of the whole call per input signature,
+as the JAX package's jit compiles one executable per input shape, and no
+host sync between the input copy and the outputs (greedy NMS is a kernel,
+the pose solve has no SVD). With a mesh that holds where
+`parallel.mesh.capturable` says so (an NCCL group, or none): the outputs'
+all-gather, or `shard_spatial`'s exchanges, are captured inside the
+graph. On the CPU, and on a gloo mesh, the call runs eagerly. Unlike the
+JAX package there is no plane-count rule: CUDA tensors always go through
+the polling kernel.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from .ops import box_coder
 from .ops.filtering import (filter_detections_batch,
                             filter_detections_fused_batch)
 from .ops.pose import solve_pose
-from .parallel.mesh import check_mesh
+from .parallel.mesh import capturable, check_mesh
 from .parallel.spatial import SpatialModel
 
 __all__ = ["CapturedDetect", "DetectionOutput", "LAUNCH_COUNTERS",
@@ -120,10 +123,11 @@ def make_detect_fn(
     filter layer, literally; the default decodes only the pre-NMS
     candidates, with the same outputs.
 
-    On a CUDA device with no mesh the result is a CapturedDetect (one CUDA
-    graph per input signature, replayed); `detect.eager` is the same call
-    run eagerly, for comparisons. On the CPU, and with a mesh, `detect`
-    runs eagerly and `detect.eager` is `detect`.
+    On a CUDA device the result is a CapturedDetect (one CUDA graph per
+    input signature, replayed; with a mesh, where `capturable` says so: an
+    NCCL group or none, the collectives inside the graph); `detect.eager`
+    is the same call run eagerly, for comparisons. On the CPU, and on a
+    gloo mesh, `detect` runs eagerly and `detect.eager` is `detect`.
 
     `shard_spatial` (requires `mesh`): the image WIDTH is split over the
     ranks instead of the batch (parallel/spatial.py). Every rank passes
@@ -163,19 +167,19 @@ def make_detect_fn(
         pre_nms_top_k=pre_nms_top_k,
     )
 
-    @torch.inference_mode()
-    def detect(images, P_inv, planes) -> DetectionOutput:
+    def select(images, P_inv, planes):
+        """This rank's part of the full inputs (views): its rows, or under
+        shard_spatial its columns of the images."""
         if tuple(images.shape[1:3]) != image_shape:
             raise ValueError(f"images {tuple(images.shape)} do not match the "
                              f"detect function's shape {image_shape}")
         if mesh is not None and not shard_spatial:
-            # this rank's rows, uploaded alone
             rows = mesh.rows(len(images))
             images, P_inv, planes = images[rows], P_inv[rows], planes[rows]
-        # this rank's columns under shard_spatial, uploaded alone
-        images = torch.as_tensor(images[:, :, columns], device=device)
-        P_inv = torch.as_tensor(P_inv, dtype=torch.float32, device=device)
-        planes = torch.as_tensor(planes, dtype=torch.float32, device=device)
+        return images[:, :, columns], P_inv, planes
+
+    def run(images, P_inv, planes) -> DetectionOutput:
+        """The call on this rank's part of the inputs, on the device."""
         if device_preprocess:
             images = images.to(torch.float32) - mean
         raw = net(images.permute(0, 3, 1, 2))
@@ -202,12 +206,22 @@ def make_detect_fn(
                                pose_dims=pose.dimensions)
         return out if mesh is None or shard_spatial else _gather(out, mesh)
 
+    @torch.inference_mode()
+    def detect(images, P_inv, planes) -> DetectionOutput:
+        images, P_inv, planes = select(images, P_inv, planes)
+        # this rank's part alone is uploaded
+        return run(torch.as_tensor(images, device=device),
+                   torch.as_tensor(P_inv, dtype=torch.float32,
+                                   device=device),
+                   torch.as_tensor(planes, dtype=torch.float32,
+                                   device=device))
+
     # the SpatialModel of shard_spatial (its last call's conv windows)
     detect.spatial = net if shard_spatial else None
     detect.eager = detect
-    if device.type != "cuda" or mesh is not None:
+    if not capturable(mesh, device):
         return detect
-    return CapturedDetect(detect, image_shape, device)
+    return CapturedDetect(detect, run, select, device)
 
 
 # the kernels' launch counters: (module, name) of each
@@ -239,31 +253,45 @@ class CapturedDetect:
     dtype; a new batch size or plane count is a new signature, as under
     JAX's jit).
 
-    The first call of a signature runs `eager` once on the stream it then
-    captures on, which builds the nvcc libraries, fills the kernels' plans
-    and cuDNN's choices, and allocates the per-stream workspaces of the
-    polling and int8 kernels there, so that the capture allocates none;
-    then it captures `eager` on static input buffers. All graphs of one
-    CapturedDetect share one memory pool, and replay on the caller's
-    current stream. A capture that fails raises: an operation that syncs
-    the host (`.item()`, a copy to the host) cannot be captured, and the
-    call never carries on eagerly.
+    `select` takes this rank's part of the full inputs (all of them
+    without a mesh; its rows, or under shard_spatial its columns of the
+    images), and `run` runs the call on that part on the device. The first
+    call of a signature runs `run` once on the stream it then captures on,
+    which builds the nvcc libraries, fills the kernels' plans and cuDNN's
+    choices, allocates the per-stream workspaces of the polling and int8
+    kernels there, so that the capture allocates none, and starts NCCL's
+    communicator; then it captures `run` on static input buffers, which
+    hold this rank's part only. All graphs of one CapturedDetect share one
+    memory pool, and replay on the caller's current stream. A capture that
+    fails raises: an operation that syncs the host (`.item()`, a copy to
+    the host) cannot be captured, and the call never carries on eagerly.
 
-    Each call copies its inputs into the signature's static buffers,
-    replays, and returns copies of the outputs made on the stream after
-    the replay, so a result stays valid while later calls run. The kernels'
-    launch counters (LAUNCH_COUNTERS) count a call's launches as the eager
-    call does: the first call's warm-up and capture are set-up and are
-    taken back, and every replay adds the launches it replays.
+    With a mesh, the outputs' all-gather (data parallel) or the width
+    split's edge-strip and slab all-reduces (shard_spatial) are inside the
+    graph. The signature is the full inputs', which every rank sees alike,
+    so every rank captures the same collectives in the same order and
+    replays them in step. On more than one rank NCCL's communicator waits,
+    as it is destroyed, for every graph that holds its collectives: end the
+    group with `parallel.shutdown(detect)`, which calls `release()` first.
+
+    Each call copies its part of the inputs into the signature's static
+    buffers, replays, and returns copies of the outputs made on the stream
+    after the replay, so a result stays valid while later calls run. The
+    kernels' launch counters (LAUNCH_COUNTERS) count a call's launches as
+    the eager call does: the first call's warm-up and capture are set-up
+    and are taken back, and every replay adds the launches it replays.
 
     The graphs read the model's parameters and buffers where they lay at
     the capture: updates in place are seen, tensors that replace them are
-    not, and int8 weights are quantized at the capture."""
+    not, and int8 weights are quantized at the capture. `spatial` is the
+    eager call's (under shard_spatial, its last Python forward: the
+    capture's conv windows)."""
 
-    def __init__(self, eager, image_shape, device):
+    def __init__(self, eager, run, select, device):
         self.eager = eager
-        self.spatial = None
-        self.image_shape = image_shape
+        self.spatial = eager.spatial
+        self._run = run
+        self._select = select
         self.device = device
         self.graphs = {}
         self._pool = torch.cuda.graph_pool_handle()
@@ -279,28 +307,34 @@ class CapturedDetect:
         before = _launch_counts()
         try:
             with torch.cuda.stream(self._stream):
-                self.eager(*static)  # warm-up: builds, plans, workspaces
+                self._run(*static)  # warm-up: builds, plans, workspaces
             warm = _launch_counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool,
                                   stream=self._stream,
                                   capture_error_mode="thread_local"):
-                out = self.eager(*static)
+                out = self._run(*static)
             captured = [a - b for a, b in zip(_launch_counts(), warm)]
         finally:
             _set_launches(before)  # set-up, not a call: the replay counts
         caller.wait_stream(self._stream)
         return _Graph(graph, static, out, captured)
 
+    def release(self):
+        """Wait for the card, then free every graph (and with them the
+        collectives they hold); a later call captures anew."""
+        if self.graphs:
+            torch.cuda.synchronize(self.device)
+            for g in self.graphs.values():
+                g.graph.reset()
+            self.graphs.clear()
+
     @torch.inference_mode()
     def __call__(self, images, P_inv, planes) -> DetectionOutput:
-        inputs = (torch.as_tensor(images), torch.as_tensor(P_inv).float(),
-                  torch.as_tensor(planes).float())
-        if tuple(inputs[0].shape[1:3]) != self.image_shape:
-            raise ValueError(f"images {tuple(inputs[0].shape)} do not match "
-                             f"the detect function's shape "
-                             f"{self.image_shape}")
-        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        full = (torch.as_tensor(images), torch.as_tensor(P_inv).float(),
+                torch.as_tensor(planes).float())
+        key = tuple((tuple(x.shape), x.dtype) for x in full)
+        inputs = self._select(*full)
         with torch.cuda.device(self.device):
             g = self.graphs.get(key)
             if g is None:

@@ -6,4 +6,4 @@ from .mesh import (
 )
 from .distributed import (initialize, is_multi_host, local_batch_slice,
                           make_global_batch, make_global_raw_batch,
-                          make_replicated)
+                          make_replicated, shutdown)

@@ -10,6 +10,10 @@ the JAX package's variables:
 `initialize()` then starts torch.distributed (NCCL for a CUDA device,
 gloo for the CPU) and rank r uses cuda:(r % the cards it sees). Without
 a coordinator it does nothing, so training code calls it unconditionally.
+`shutdown(*captured)` ends the group: it releases the captured steps and
+detect calls it is given first, since on more than one NCCL rank the
+communicator waits, as it is destroyed, for every graph that holds its
+collectives.
 
 "Global" batches: every rank is handed the same full batch (built from a
 shared seed or a shared filesystem) and keeps its `local_batch_slice`
@@ -19,6 +23,7 @@ rows; replicated values stay whole.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 from typing import Optional
 
@@ -27,7 +32,7 @@ import torch.distributed as dist
 
 from .mesh import rank_device, replicated_sharding, shard_batch
 
-__all__ = ["initialize", "is_multi_host", "local_batch_slice",
+__all__ = ["initialize", "shutdown", "is_multi_host", "local_batch_slice",
            "make_global_batch", "make_replicated", "make_global_raw_batch"]
 
 
@@ -41,7 +46,14 @@ def initialize(coordinator_address: Optional[str] = None,
 
     `backend` defaults to NCCL for a CUDA `device` and gloo for the CPU
     (two ranks that share one card need gloo: NCCL refuses them).
-    GPP_DIST_INIT_TIMEOUT (seconds, default 900) bounds the start-up."""
+    GPP_DIST_INIT_TIMEOUT (seconds, default 900) bounds the start-up.
+
+    The environment is left as it is. PyTorch's notes on capturing DDP ask
+    for NCCL's asynchronous error handling off
+    (TORCH_NCCL_ASYNC_ERROR_HANDLING=0) before the group starts; torch
+    2.11's ProcessGroupNCCL (NCCL 2.28) keeps captured collectives out of
+    its watchdog's queue, and the captured DDP step and mesh detect calls
+    capture and replay on an NCCL group with the variable unset."""
     coordinator_address = coordinator_address or os.environ.get(
         "COORDINATOR_ADDRESS")
     if coordinator_address is None or dist.is_initialized():
@@ -69,6 +81,28 @@ def initialize(coordinator_address: Optional[str] = None,
         world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(
             seconds=int(os.environ.get("GPP_DIST_INIT_TIMEOUT", 900))))
+
+
+def shutdown(*captured) -> None:
+    """End the default process group, where one is up: `release()` each
+    captured step or detect call given (training.train.CapturedTrainStep,
+    inference.CapturedDetect; an eager step or call, which holds no graph,
+    is passed over), collect the ones the caller dropped (a graph kept
+    alive by a reference cycle), wait for the card, then
+    destroy_process_group. On more than one NCCL rank the destruction waits
+    for every graph that captured the group's collectives, so one left
+    alive would make it wait for ever; pass every step and detect call
+    still in use."""
+    for obj in captured:
+        release = getattr(obj, "release", None)
+        if release is not None:
+            release()
+    if not dist.is_initialized():
+        return
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 def is_multi_host() -> bool:

@@ -11,6 +11,17 @@ DistributedDataParallel over the mesh's group (training/train.py).
 
 A mesh made without an initialized process group is one rank with no
 collectives: the single-process path.
+
+Where JAX compiles a mesh path into one XLA program with its collectives
+inside, the port captures it as CUDA graphs with its NCCL collectives
+inside (training.train.CapturedTrainStep, inference.CapturedDetect):
+`capturable` decides, once, when the step or detect function is built. A
+mesh on a card whose group is NCCL, or that has no group, is captured;
+gloo's collectives cannot be captured, so a gloo mesh (two ranks sharing
+one card, or the CPU) runs eagerly. End the group with
+`distributed.shutdown(*captured)`, which releases the captured steps and
+calls first: NCCL's communicator waits, as it is destroyed, for every graph
+that captured its collectives.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import torch.distributed as dist
 
 __all__ = ["DataParallelMesh", "Sharding", "data_parallel_mesh",
            "batch_sharding", "replicated_sharding", "shard_batch",
-           "check_mesh", "rank_device"]
+           "check_mesh", "rank_device", "capturable"]
 
 
 def rank_device(device="cuda", rank: Optional[int] = None) -> torch.device:
@@ -101,6 +112,19 @@ class DataParallelMesh(NamedTuple):
             dist.barrier(group=self.group, device_ids=[self.device.index])
         else:
             dist.barrier(group=self.group)
+
+
+def capturable(mesh: Optional[DataParallelMesh], device) -> bool:
+    """Whether a train step or detect call on `device` over `mesh` (None:
+    no mesh) runs as captured CUDA graphs: on a card, with no process
+    group or an NCCL one. A gloo group's collectives cannot be captured,
+    nor can anything on the CPU; those run eagerly. Read once, when the
+    step or detect function is built, never from a failure."""
+    if torch.device(device).type != "cuda":
+        return False
+    if mesh is None or mesh.group is None:
+        return True
+    return dist.get_backend(mesh.group) == "nccl"
 
 
 def data_parallel_mesh(n_devices: Optional[int] = None, device="cuda",

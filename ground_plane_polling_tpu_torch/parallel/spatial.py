@@ -30,7 +30,11 @@ have; no rank gathers a whole map before the heads. A map's global width
 is not seen in its columns, so `record_widths` runs the forward once on
 the meta device (shapes only) and notes each width operation's global
 input width in call order; the sharded forward takes them in the same
-order and checks each against the columns it holds.
+order and checks each against the columns it holds. The upsamplings'
+index tables (which input column and row each output copies, and the
+columns each rank needs) are read from the resize once, when the
+SpatialModel is built, and stay on the device: the forward reads nothing
+back to the host, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from ..models.fpn import SameConv2d
 from ..models.quantize import QuantizedModel, _intercept
 
 __all__ = ["owned", "ColumnSplit", "SpatialModel", "record_widths",
-           "conv_window_bound"]
+           "upsample_tables", "conv_window_bound"]
 
 
 def owned(size: int, ranks: int, rank: int):
@@ -99,7 +103,8 @@ class _Recorder:
             return width.pool2d(x, kind, kernel, stride, padding)
 
     def upsample_to(self, x, target_hw):
-        self.widths.append(("upsample", (x.shape[3], int(target_hw[1]))))
+        self.widths.append(("upsample", (x.shape[3], int(target_hw[1]),
+                                         x.shape[2], int(target_hw[0]))))
         with width.split_columns(None):
             return width.upsample_to(x, target_hw)
 
@@ -111,7 +116,8 @@ class _Recorder:
 def record_widths(model, image_shape) -> list:
     """[(kind, global input width)] of every width operation of model's
     forward on images of `image_shape`, in call order, from a pass on the
-    meta device (no weight is read)."""
+    meta device (no weight is read). An upsampling's entry is (input
+    width, target width, input height, target height)."""
     meta = {name: torch.empty_like(t, device="meta") for name, t in
             itertools.chain(model.named_parameters(), model.named_buffers())}
     rec = _Recorder()
@@ -125,14 +131,16 @@ def record_widths(model, image_shape) -> list:
 class ColumnSplit:
     """One forward's width layer on this rank's columns (models/width.py
     calls its methods, and `_intercept` its `conv`). `widths` comes from
-    `record_widths`; `inner(site, conv, x, pad)` runs a conv site on the
-    window of columns it reads (float_conv, or the int8 conv of a
+    `record_widths`, `tables` from `upsample_tables` (by the operation's
+    position); `inner(site, conv, x, pad)` runs a conv site on the window
+    of columns it reads (float_conv, or the int8 conv of a
     QuantizedModel). `windows` notes each conv's (global input width,
     kernel, width of the window it ran on)."""
 
-    def __init__(self, mesh, widths, inner=float_conv):
+    def __init__(self, mesh, widths, tables, inner=float_conv):
         self.mesh = mesh
         self.widths = widths
+        self.tables = tables
         self.inner = inner
         self.at = 0
         self.windows = []
@@ -235,21 +243,21 @@ class ColumnSplit:
 
     def upsample_to(self, x, target_hw):
         """Nearest: each output column copies one input column, the one
-        torch's own resize picks on this device (models/width.py)."""
-        size, target = self._next("upsample", x)
-        n, r = self.mesh.size, self.mesh.rank
-        src = _nearest_source(size, target, x.device)
-        src_host = src.tolist()
-        need = []
-        for q in range(n):
-            c, d = owned(target, n, q)
-            need.append((src_host[c], src_host[d - 1] + 1) if d > c
-                        else (0, 0))
-        cols = self.fetch(x, size, need)
-        c, d = owned(target, n, r)
-        rows = _nearest_source(x.shape[2], int(target_hw[0]), x.device)
-        return cols.index_select(2, rows).index_select(
-            3, src[c:d] - need[r][0])
+        torch's own resize picks on this device (models/width.py), by the
+        operation's tables (`upsample_tables`)."""
+        at = self.at
+        size, target, height, target_h = self._next("upsample", x)
+        need, rows, cols = self.tables[at]
+        # target_hw's width is this rank's columns of the target
+        if (x.shape[2], int(target_hw[0]), int(target_hw[1])) != (
+                height, target_h, len(cols)):
+            raise RuntimeError(
+                f"upsampling {at} of a {x.shape[2]}-row map to "
+                f"{tuple(target_hw)}, but the shape pass recorded "
+                f"{height} rows to {target_h}, and rank {self.mesh.rank} "
+                f"holds {len(cols)} of the {target} target columns")
+        return self.fetch(x, size, need).index_select(2, rows).index_select(
+            3, cols)
 
     def gather(self, x):
         """The whole map on every rank: each rank's columns, in rank
@@ -276,11 +284,38 @@ def _nearest_source(size: int, target: int, device) -> torch.Tensor:
                          mode="nearest-exact").view(target).long()
 
 
+def upsample_tables(widths, ranks: int, rank: int, device) -> dict:
+    """{position of an upsampling in `widths`: (need, rows, cols)}: every
+    rank's input columns [lo, hi) (`ColumnSplit.fetch`'s need), and, on
+    `device`, the input row that each output row copies and the column of
+    the fetched ones that each of this rank's output columns copies. The
+    indices come from the resize on `device` (`_nearest_source`), read
+    back here, once."""
+    tables = {}
+    for at, (kind, size) in enumerate(widths):
+        if kind != "upsample":
+            continue
+        width_in, target, height, target_h = size
+        src = _nearest_source(width_in, target, device)
+        src_host = src.tolist()
+        need = []
+        for q in range(ranks):
+            c, d = owned(target, ranks, q)
+            need.append((src_host[c], src_host[d - 1] + 1) if d > c
+                        else (0, 0))
+        c, d = owned(target, ranks, rank)
+        tables[at] = (need, _nearest_source(height, target_h, device),
+                      src[c:d] - need[rank][0])
+    return tables
+
+
 class SpatialModel:
     """`model` (or a models.quantize.QuantizedModel) run with one image's
     width split over `mesh`: called with this rank's columns of the NCHW
     images (`columns`), it returns the whole head outputs on every rank.
-    `last` is the ColumnSplit of the latest call (its conv windows)."""
+    `last` is the ColumnSplit of the latest call (its conv windows; a
+    replayed CUDA graph runs no Python, so after a replay the
+    capture's)."""
 
     def __init__(self, model, mesh, image_shape):
         quantized = isinstance(model, QuantizedModel)
@@ -290,6 +325,8 @@ class SpatialModel:
         self.mesh = mesh
         self.image_width = int(image_shape[1])
         self.widths = record_widths(self.model, image_shape)
+        self.tables = upsample_tables(self.widths, mesh.size, mesh.rank,
+                                      mesh.device)
         self.last = None
 
     def columns(self) -> slice:
@@ -298,7 +335,7 @@ class SpatialModel:
                             self.mesh.rank))
 
     def __call__(self, images):
-        split = ColumnSplit(self.mesh, self.widths, self.inner)
+        split = ColumnSplit(self.mesh, self.widths, self.tables, self.inner)
         with width.split_columns(split), \
                 _intercept(self.model, split.conv) as sites:
             out = self.model(images)

@@ -29,12 +29,17 @@ The clip runs after backward(), on the reduced gradients, and the
 returned metrics are the global loss terms. `state.model` stays the
 unwrapped module, so checkpoints keep its parameter names.
 
-Compiled form: where JAX jits the step, `make_train_step` and
-`make_fused_train_step` without a mesh return a `CapturedTrainStep` when
-the machine has a card: one CUDA graph per batch signature, replayed for
-a state on the card (a state on the CPU takes the eager step). On the CPU,
-and with a mesh, the step is eager. `step.eager` is the eager step either
-way (`step.eager is step` where there is no graph).
+Compiled form: where JAX jits the step (with a mesh, one XLA program with
+the gradient all-reduce inside), `make_train_step`,
+`make_sharded_train_step` and `make_fused_train_step` return a
+`CapturedTrainStep`: one CUDA graph per batch signature, replayed for a
+state on the card (a state on the CPU takes the eager step). Without a
+mesh that is so on a machine with a card; with a mesh, where
+`parallel.mesh.capturable` says so: on a card, with an NCCL group (the
+normalizers' all-reduce and every DDP bucket's gradient all-reduce
+captured inside the graph) or none. A gloo mesh and the CPU run the step
+eagerly. `step.eager` is the eager step either way (`step.eager is step`
+where there is no graph).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..data.pipeline import prepare_batch
-from ..parallel.mesh import check_mesh
+from ..parallel.mesh import capturable, check_mesh
 from . import losses
 
 __all__ = ["TrainState", "clip_per_tensor_norm", "make_optimizer",
@@ -160,10 +165,18 @@ def compute_losses(model, batch, compat_height_only: bool = False,
     return sum(local.values()), {"loss": sum(terms.values()), **terms}
 
 
+# eager DDP iterations before the first capture of a DDP step: DDP
+# rebuilds its buckets after the first and reads back the timing events of
+# its first 10 (PyTorch's notes on CUDA graphs with DDP ask for 11)
+DDP_WARMUP = 11
+
+
 class _Replicas:
     """The DistributedDataParallel wrapper of the state's model over a
     mesh's group, made at the first step (its construction broadcasts rank
-    0's parameters) and again if the state's model changes."""
+    0's parameters, on the stream current then) and again if the state's
+    model changes. Each step object has its own (a captured step and its
+    eager step each wrap the model of the state they are given)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -179,6 +192,18 @@ class _Replicas:
             self._ddp = DistributedDataParallel(
                 model, device_ids=[device] if device.type == "cuda" else None,
                 process_group=self.mesh.group, broadcast_buffers=False)
+            # no timing events past the first 10 iterations: a capture at a
+            # sampled iteration would record them into the graph. The
+            # setter is DDP's own, private (torch 1.10 to 2.13 have it)
+            setter = getattr(self._ddp,
+                             "_set_ddp_runtime_logging_sample_rate", None)
+            if setter is None:
+                raise RuntimeError(
+                    f"torch {torch.__version__}'s DistributedDataParallel "
+                    "has no _set_ddp_runtime_logging_sample_rate: a captured "
+                    "DDP step would record DDP's timing events into its "
+                    "graph")
+            setter(2**31 - 1)
             self._model = model
         return self._ddp
 
@@ -203,31 +228,34 @@ def _step_body(state: TrainState, batch, compat_height_only: bool,
 
 
 def _compiled(body, mesh):
-    """The step of `body(state, batch) -> metrics`: eager with a mesh or
-    without a card, else a CapturedTrainStep (which takes a state on the
-    CPU to the eager step)."""
+    """The step of `body(state, batch, replicas) -> metrics`: a
+    CapturedTrainStep where `capturable` says so (without a mesh: a
+    machine with a card; it takes a state on the CPU to the eager step),
+    else eager."""
+    replicas = None if mesh is None else _Replicas(mesh)
+
     def train_step(state: TrainState, batch):
-        metrics = body(state, batch)
+        metrics = body(state, batch, replicas)
         state.step += 1
         return state, metrics
 
     train_step.eager = train_step
-    if mesh is not None or not torch.cuda.is_available():
+    device = (mesh.device if mesh is not None else
+              "cuda" if torch.cuda.is_available() else "cpu")
+    if not capturable(mesh, device):
         return train_step
-    return CapturedTrainStep(train_step, body)
+    return CapturedTrainStep(train_step, body, mesh)
 
 
 def make_train_step(compat_height_only: bool = False, bf16: bool = False,
                     clipnorm: float = 1e-3, mesh=None):
     """train_step(state, batch) -> (state, metrics) for prepared batches
     (the two-stage loader); with a `mesh`, batches of this rank's rows."""
-    replicas = None if check_mesh(mesh) is None else _Replicas(mesh)
-
-    def body(state: TrainState, batch):
+    def body(state: TrainState, batch, replicas):
         return _step_body(state, batch, compat_height_only, bf16, clipnorm,
                           replicas)
 
-    return _compiled(body, mesh)
+    return _compiled(body, check_mesh(mesh))
 
 
 def make_sharded_train_step(mesh, compat_height_only: bool = False,
@@ -252,7 +280,7 @@ def make_fused_train_step(num_classes: Optional[int] = None,
     KittiLoader(raw_batches=True). Pass either `loader` (num_classes and
     augment come from it) or `num_classes` and `augment`. With a `mesh`,
     raw batches of this rank's rows (KittiLoader(mesh=...))."""
-    replicas = None if check_mesh(mesh) is None else _Replicas(mesh)
+    check_mesh(mesh)
     if loader is not None:
         if not loader.raw_batches:
             raise ValueError(
@@ -269,7 +297,7 @@ def make_fused_train_step(num_classes: Optional[int] = None,
                          "make_fused_train_step")
     augment = True if augment is None else augment
 
-    def body(state: TrainState, raw):
+    def body(state: TrainState, raw, replicas):
         batch = prepare_batch(raw, num_classes, augment,
                               next(state.model.parameters()).device)
         return _step_body(state, batch, compat_height_only, bf16, clipnorm,
@@ -307,20 +335,39 @@ class CapturedTrainStep:
     from pageable memory): the step never carries on eagerly. The warm-up
     step it took stays taken.
 
+    With a `mesh` whose group is NCCL, the body is the DDP step: its
+    DistributedDataParallel wrapper is built on the side stream at the
+    first call, and the first DDP_WARMUP calls are eager DDP steps on that
+    stream (each a real step, with its own metrics), the last of them
+    followed by the first capture; a later signature takes one eager step,
+    as without a mesh. The graph holds the loss normalizers' all-reduce and
+    every bucket's gradient all-reduce: every rank captures the same
+    collectives in the same order and replays them in step. DDP's buckets
+    stay where its last rebuild (after its first step) put them. On more
+    than one rank NCCL's communicator waits, as it is destroyed, for every
+    graph that holds its collectives: end the group with
+    `parallel.shutdown(step)`, which calls `release()` first.
+
     The graphs read the live tensors of the state they were captured for:
     the parameters, Adam's moments and step counts, and the lr tensor.
     `TrainState.lr` and `restore_checkpoint` write those in place, so the
     next replay sees them; an optimizer whose state or lr tensor was
     replaced otherwise (its own `load_state_dict`) makes the step raise.
-    After a step each parameter's .grad holds that step's clipped
-    gradient, as after the eager step.
+    After a step each parameter's .grad holds that step's clipped (and,
+    with a mesh, reduced) gradient, as after the eager step.
 
     `eager` is the eager step (for comparisons; it advances the same state
-    when given it). A state on the CPU takes it too."""
+    when given it, through a DDP wrapper of its own). A state on the CPU
+    takes it too."""
 
-    def __init__(self, eager, body):
+    def __init__(self, eager, body, mesh=None):
         self.eager = eager
         self._body = body
+        self._replicas = None if mesh is None else _Replicas(mesh)
+        # eager steps on the side stream before the first capture
+        self._warmup = (DDP_WARMUP if mesh is not None
+                        and mesh.group is not None else 1)
+        self._eager_steps = 0
         self.graphs = {}
         self._pool = self._stream = None
         self._owner = None  # (model, optimizer, its state, lr tensor)
@@ -339,26 +386,43 @@ class CapturedTrainStep:
                 "step, and a checkpoint loads through restore_checkpoint, "
                 "which writes the live tensors in place")
 
-    def _capture(self, state, batch, device):
+    def _eager_step(self, state, batch, device):
+        """This call's step, eagerly on the side stream (made at the first
+        call, with the graphs' pool), which the caller's stream waits
+        for."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(device)
-        static = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
-                  for k, v in batch.items()}
-        for k, s in static.items():
-            s.copy_(batch[k], non_blocking=True)
         caller = torch.cuda.current_stream(device)
         self._stream.wait_stream(caller)
         try:
             with torch.cuda.stream(self._stream):
-                metrics = self._body(state, static)  # this call's step
-                state.step += 1
-                warm = [p.grad for p in self._params]
+                metrics = self._body(state, batch, self._replicas)
+        finally:
+            caller.wait_stream(self._stream)
+        state.step += 1
+        self._eager_steps += 1
+        return metrics
+
+    def _capture(self, state, batch, device):
+        """A signature's first call once the warm-up steps are taken: the
+        batch into static buffers, this call's step eagerly on the side
+        stream, then the capture of the same body there."""
+        static = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                  for k, v in batch.items()}
+        for k, s in static.items():
+            s.copy_(batch[k], non_blocking=True)
+        metrics = self._eager_step(state, static, device)
+        warm = [p.grad for p in self._params]
+        caller = torch.cuda.current_stream(device)
+        self._stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self._stream):
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=self._pool,
                                       stream=self._stream,
                                       capture_error_mode="thread_local"):
-                    out = self._body(state, static)
+                    out = self._body(state, static, self._replicas)
                     keys = tuple(out)
                     stacked = torch.stack([out[k] for k in keys])
                 grads = [p.grad for p in self._params]
@@ -371,6 +435,16 @@ class CapturedTrainStep:
         probe = next(i for i, g in enumerate(grads) if g is not None)
         return _StepGraph(graph, static, keys, stacked, grads, probe), metrics
 
+    def release(self):
+        """Wait for the card, then free every graph (and with them the
+        NCCL collectives they hold); the state keeps its tensors, and a later
+        call captures anew."""
+        if self.graphs:
+            torch.cuda.synchronize(self._stream.device)
+            for g in self.graphs.values():
+                g.graph.reset()
+            self.graphs.clear()
+
     def __call__(self, state: TrainState, batch):
         device = next(state.model.parameters()).device
         if device.type != "cuda":
@@ -381,6 +455,8 @@ class CapturedTrainStep:
         with torch.cuda.device(device):
             g = self.graphs.get(key)
             if g is None:
+                if self._eager_steps + 1 < self._warmup:  # DDP's warm-up
+                    return state, self._eager_step(state, batch, device)
                 g, metrics = self._capture(state, batch, device)
                 self.graphs[key] = g
                 return state, metrics

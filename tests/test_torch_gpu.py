@@ -1,8 +1,12 @@
 """The PyTorch port on the card: its CUDA kernels against their plain
 PyTorch versions, fused against split heads, serve --once, one train
 step against the same run on the CPU, the DDP step on a 1-rank NCCL group
-against the plain step, --remat, and the captured train step against its
-eager step. Every test here needs a CUDA device
+against the plain step, --remat, the captured train step against its
+eager step, and the captured mesh paths on the 1-rank NCCL group (the DDP
+step, the data-parallel and width-split detect calls) against their eager
+forms, their graphs released and captured anew, with a gloo group on the
+card kept eager. Every test here needs a
+CUDA device
 (`gpu` marker) and skips without one. The file imports nothing of JAX, so
 it also runs where JAX is not installed:
 
@@ -1353,3 +1357,216 @@ def test_capture_of_a_syncing_train_step_raises(cuda):
     torch.cuda.synchronize()
     state, metrics = step.eager(state, raw)
     assert state.step == 3 and torch.isfinite(metrics["loss"]).item()
+
+
+# --- the captured mesh paths (CapturedTrainStep, CapturedDetect with a mesh)
+
+def _captured_ddp_step(mesh, bf16):
+    from ground_plane_polling_tpu_torch.training.train import (
+        CapturedTrainStep, make_fused_train_step)
+
+    step = make_fused_train_step(num_classes=1, augment=True, bf16=bf16,
+                                 mesh=mesh)
+    assert isinstance(step, CapturedTrainStep) and step.eager is not step
+    return step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_captured_ddp_step_equals_eager(nccl_mesh, tf32_off, deterministic,
+                                        bf16):
+    """The DDP step over the 1-rank NCCL group, captured, against
+    step.eager from the same weights on the same batches: DDP_WARMUP eager
+    steps on the side stream (the last followed by the capture), then
+    three replays; metrics and every .grad bit for bit at each step, and
+    the parameters, Adam's moments and step counts after."""
+    from ground_plane_polling_tpu_torch.training.train import DDP_WARMUP
+
+    captured, eager = _train_states(nccl_mesh.device)
+    step = _captured_ddp_step(nccl_mesh, bf16)
+    for i, raw in enumerate(_raw_train_batches(DDP_WARMUP + 3)):
+        captured, got = step(captured, raw)
+        eager, want = step.eager(eager, raw)
+        assert len(step.graphs) == (i + 1 >= DDP_WARMUP), i
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+        for (n, p), q in zip(captured.model.named_parameters(),
+                             eager.model.parameters()):
+            assert (p.grad is None) == (q.grad is None), n
+            assert p.grad is None or torch.equal(p.grad, q.grad), (i, n)
+    assert captured.step == DDP_WARMUP + 3
+    _assert_same_train_state(captured, eager)
+
+
+@pytest.mark.gpu
+def test_captured_ddp_replay_makes_no_host_sync(nccl_mesh):
+    """A replay of the captured DDP bf16 step (its all-reduces inside the
+    graph) under torch.cuda's sync debug mode "error"."""
+    from ground_plane_polling_tpu_torch.training.train import DDP_WARMUP
+
+    state, = _train_states(nccl_mesh.device, n=1)
+    step = _captured_ddp_step(nccl_mesh, True)
+    raw = _raw_train_batches(1)[0]
+    for _ in range(DDP_WARMUP):
+        state, _ = step(state, raw)
+    assert len(step.graphs) == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, raw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == DDP_WARMUP + 1
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.gpu
+def test_captured_ddp_step_sees_lr_and_restore(nccl_mesh, tf32_off,
+                                               deterministic, tmp_path):
+    """After the capture of the DDP step, an lr change and a
+    restore_checkpoint reach the graph; a batch of a second canvas shape
+    takes one eager step and a second capture. The captured state stays
+    bit-equal to an eager state given the same."""
+    from ground_plane_polling_tpu_torch.training.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    from ground_plane_polling_tpu_torch.training.train import DDP_WARMUP
+
+    captured, eager = _train_states(nccl_mesh.device)
+    step = _captured_ddp_step(nccl_mesh, False)
+    batches = _raw_train_batches(DDP_WARMUP + 3)
+    path = None
+    for raw in batches[:DDP_WARMUP + 1]:
+        captured, _ = step(captured, raw)
+        eager, _ = step.eager(eager, raw)
+        if eager.step == 2:
+            path = save_checkpoint(str(tmp_path / "ckpt"), eager)
+    assert len(step.graphs) == 1
+    captured.lr = eager.lr = 2.5e-4
+    for raw in batches[DDP_WARMUP + 1:]:
+        captured, _ = step(captured, raw)
+        eager, _ = step.eager(eager, raw)
+    _assert_same_train_state(captured, eager)
+    captured = restore_checkpoint(path, captured)
+    eager = restore_checkpoint(path, eager)
+    assert captured.step == 2
+    other = _raw_train_batches(2, (96, 256))
+    for raw in (batches[0], other[0], other[1], batches[1]):
+        captured, got = step(captured, raw)
+        eager, want = step.eager(eager, raw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert len(step.graphs) == 2
+    _assert_same_train_state(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shard_spatial", [False, True],
+                         ids=["data_parallel", "shard_spatial"])
+def test_captured_mesh_detect_equals_eager(nccl_mesh, tf32_off,
+                                           shard_spatial):
+    """make_detect_fn(mesh=...) over the 1-rank NCCL group is captured, its
+    collectives inside the graph: float32 at 128x416, pose on, every field
+    equal to detect.eager's; each replay adds one polling and one NMS
+    launch and makes no host sync; detect.spatial holds the capture's
+    conv windows."""
+    from ground_plane_polling_tpu_torch.inference import (CapturedDetect,
+                                                          make_detect_fn,
+                                                          place_model)
+    from ground_plane_polling_tpu_torch.kernels import nms_cuda
+
+    model = place_model(_seeded_detector(), nccl_mesh.device)
+    detect = make_detect_fn(model, (128, 416), with_pose=True,
+                            device_preprocess=True, mesh=nccl_mesh,
+                            shard_spatial=shard_spatial)
+    assert isinstance(detect, CapturedDetect) and detect.eager is not detect
+    args = _detect_args(2, (128, 416), nccl_mesh.device)
+    want = _numpy(detect.eager(*args))
+    assert (want["scores"] > 0).any()
+    got = _numpy(detect(*args))
+    before = polling_cuda.LAUNCHES, nms_cuda.NMS_LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = detect(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (polling_cuda.LAUNCHES, nms_cuda.NMS_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert len(detect.graphs) == 1
+    for out in (got, _numpy(again)):
+        for key in want:
+            np.testing.assert_array_equal(out[key], want[key], err_msg=key)
+    assert (detect.spatial is not None) is shard_spatial
+    if shard_spatial:
+        assert detect.spatial.last.windows
+
+
+@pytest.mark.gpu
+def test_gloo_mesh_on_the_card_stays_eager(nccl_mesh):
+    """A gloo group on the card (as two ranks sharing one card use): the
+    train steps and the detect calls stay eager, and the eager call runs
+    its gloo collective."""
+    import torch.distributed as dist
+
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+    from ground_plane_polling_tpu_torch.parallel import data_parallel_mesh
+    from ground_plane_polling_tpu_torch.training.train import (
+        make_fused_train_step, make_sharded_train_step, make_train_step)
+
+    group = dist.new_group(backend="gloo")
+    try:
+        mesh = data_parallel_mesh(group=group)
+        assert mesh.device.type == "cuda"
+        for step in (make_train_step(mesh=mesh),
+                     make_sharded_train_step(mesh),
+                     make_fused_train_step(num_classes=1, mesh=mesh)):
+            assert step.eager is step
+        model = place_model(_seeded_detector(), mesh.device)
+        args = _detect_args(2, (128, 416), mesh.device)
+        for shard_spatial in (False, True):
+            detect = make_detect_fn(model, (128, 416), with_pose=True,
+                                    device_preprocess=True, mesh=mesh,
+                                    shard_spatial=shard_spatial)
+            assert detect.eager is detect
+            assert detect(*args).scores.shape == (2, 100)
+    finally:
+        dist.destroy_process_group(group)
+
+
+@pytest.mark.gpu
+def test_released_mesh_paths_capture_anew(nccl_mesh, tf32_off,
+                                          deterministic):
+    """release() of the captured DDP step and of the captured data-parallel
+    detect call frees their graphs; the next call captures anew (the step
+    with one eager step first, as a new signature) and stays bit-equal to
+    the eager state and call."""
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+    from ground_plane_polling_tpu_torch.training.train import DDP_WARMUP
+
+    captured, eager = _train_states(nccl_mesh.device)
+    step = _captured_ddp_step(nccl_mesh, False)
+    batches = _raw_train_batches(DDP_WARMUP + 2)
+    for i, raw in enumerate(batches):
+        if i == DDP_WARMUP:
+            assert len(step.graphs) == 1
+            step.release()
+            assert not step.graphs
+        captured, _ = step(captured, raw)
+        eager, _ = step.eager(eager, raw)
+    assert len(step.graphs) == 1
+    _assert_same_train_state(captured, eager)
+
+    model = place_model(_seeded_detector(), nccl_mesh.device)
+    detect = make_detect_fn(model, (128, 416), with_pose=True,
+                            device_preprocess=True, mesh=nccl_mesh)
+    args = _detect_args(2, (128, 416), nccl_mesh.device)
+    want = _numpy(detect.eager(*args))
+    detect(*args)
+    detect.release()
+    assert not detect.graphs
+    got = _numpy(detect(*args))
+    assert len(detect.graphs) == 1
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
