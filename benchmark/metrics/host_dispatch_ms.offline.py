@@ -1,0 +1,4 @@
+"""host_dispatch_ms.offline: median host ms from dispatch to return of the
+detect call (the benchmark's own span around CapturedDetect.__call__)."""
+
+from benchmark.lib.readers import host_dispatch_ms as read  # noqa: F401
