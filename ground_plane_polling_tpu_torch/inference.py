@@ -23,6 +23,12 @@ all-gather, or `shard_spatial`'s exchanges, are captured inside the
 graph. On the CPU, and on a gloo mesh, the call runs eagerly. Unlike the
 JAX package there is no plane-count rule: CUDA tensors always go through
 the polling kernel.
+
+Tracing (utils/profiling.py): while a profiler records, a call is the
+host range `gpp.detect`, and its stages `gpp.trunk`, `gpp.filter`,
+`gpp.polling` and `gpp.pose` wherever `run` executes Python (an eager
+call, a capture). With GPP_TRACE=1 the stages are also stamped on the
+card, inside the graph: `profiling.stage_ms` reads them back.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from .ops.filtering import (filter_detections_batch,
 from .ops.pose import solve_pose
 from .parallel.mesh import capturable, check_mesh
 from .parallel.spatial import SpatialModel
+from .utils.profiling import span, stage_stamps
 
 __all__ = ["CapturedDetect", "DetectionOutput", "LAUNCH_COUNTERS",
            "decode_predictions", "make_detect_fn", "place_model",
@@ -179,42 +186,59 @@ def make_detect_fn(
         return images[:, :, columns], P_inv, planes
 
     def run(images, P_inv, planes) -> DetectionOutput:
-        """The call on this rank's part of the inputs, on the device."""
-        if device_preprocess:
-            images = images.to(torch.float32) - mean
-        raw = net(images.permute(0, 3, 1, 2))
-        if fused_decode:
-            det = filter_detections_fused_batch(
-                anchors, raw["regression"], raw["regression_dim"],
-                raw["classification"], **filter_kwargs)
-        else:
-            boxes, dims = decode_predictions(raw, anchors, num_classes)
-            det = filter_detections_batch(
-                boxes, dims, raw["classification"], **filter_kwargs)
-        poll = polling_cuda.fit_road_planes(
-            det.boxes, det.dims, det.orientations, P_inv, planes)
+        """The call on this rank's part of the inputs, on the device: four
+        stages, each a host span (a graph's replay runs no Python, so only
+        its capture shows them) and, with GPP_TRACE=1 on a card, between
+        device stamps (utils/profiling.py)."""
+        stamp = stage_stamps(device)
+        stamp(0)
+        with span("trunk"):
+            if device_preprocess:
+                images = images.to(torch.float32) - mean
+            raw = net(images.permute(0, 3, 1, 2))
+        stamp(1)
+        with span("filter"):
+            if fused_decode:
+                det = filter_detections_fused_batch(
+                    anchors, raw["regression"], raw["regression_dim"],
+                    raw["classification"], **filter_kwargs)
+            else:
+                boxes, dims = decode_predictions(raw, anchors, num_classes)
+                det = filter_detections_batch(
+                    boxes, dims, raw["classification"], **filter_kwargs)
+        stamp(2)
+        with span("polling"):
+            poll = polling_cuda.fit_road_planes(
+                det.boxes, det.dims, det.orientations, P_inv, planes)
+        stamp(3)
         out = DetectionOutput(
             boxes=det.boxes, dims=det.dims, scores=det.scores,
             labels=det.labels, orientations=det.orientations,
             keypoints=poll.keypoints, keyplanes=poll.keyplanes,
             residuals=poll.residuals,
         )
-        if with_pose:
-            pose = solve_pose(poll.keypoints, det.orientations.clamp(min=0),
-                              det.dims)
-            out = out._replace(locations=pose.locations, angles=pose.angles,
-                               pose_dims=pose.dimensions)
-        return out if mesh is None or shard_spatial else _gather(out, mesh)
+        with span("pose"):
+            if with_pose:
+                pose = solve_pose(poll.keypoints,
+                                  det.orientations.clamp(min=0), det.dims)
+                out = out._replace(locations=pose.locations,
+                                   angles=pose.angles,
+                                   pose_dims=pose.dimensions)
+            if mesh is not None and not shard_spatial:
+                out = _gather(out, mesh)
+        stamp(4)
+        return out
 
     @torch.inference_mode()
     def detect(images, P_inv, planes) -> DetectionOutput:
-        images, P_inv, planes = select(images, P_inv, planes)
-        # this rank's part alone is uploaded
-        return run(torch.as_tensor(images, device=device),
-                   torch.as_tensor(P_inv, dtype=torch.float32,
-                                   device=device),
-                   torch.as_tensor(planes, dtype=torch.float32,
-                                   device=device))
+        with span("detect"):
+            images, P_inv, planes = select(images, P_inv, planes)
+            # this rank's part alone is uploaded
+            return run(torch.as_tensor(images, device=device),
+                       torch.as_tensor(P_inv, dtype=torch.float32,
+                                       device=device),
+                       torch.as_tensor(planes, dtype=torch.float32,
+                                       device=device))
 
     # the SpatialModel of shard_spatial (its last call's conv windows)
     detect.spatial = net if shard_spatial else None
@@ -285,7 +309,13 @@ class CapturedDetect:
     the capture: updates in place are seen, tensors that replace them are
     not, and int8 weights are quantized at the capture. `spatial` is the
     eager call's (under shard_spatial, its last Python forward: the
-    capture's conv windows)."""
+    capture's conv windows).
+
+    While a profiler records, a call is the range `gpp.detect`, holding
+    `gpp.detect.inputs` (the inputs, their signature and this rank's
+    part), then `gpp.detect.capture` (a signature's first call: warm-up
+    and capture) or `gpp.detect.copy_in`, then `gpp.detect.replay` and
+    `gpp.detect.copy_out` (the output copies)."""
 
     def __init__(self, eager, run, select, device):
         self.eager = eager
@@ -329,24 +359,30 @@ class CapturedDetect:
                 g.graph.reset()
             self.graphs.clear()
 
-    @torch.inference_mode()
     def __call__(self, images, P_inv, planes) -> DetectionOutput:
-        full = (torch.as_tensor(images), torch.as_tensor(P_inv).float(),
-                torch.as_tensor(planes).float())
-        key = tuple((tuple(x.shape), x.dtype) for x in full)
-        inputs = self._select(*full)
-        with torch.cuda.device(self.device):
-            g = self.graphs.get(key)
-            if g is None:
-                g = self.graphs[key] = self._capture(inputs)
-            else:
-                for s, x in zip(g.inputs, inputs):
-                    s.copy_(x)
-            g.graph.replay()
-            _set_launches([n + k for n, k in zip(_launch_counts(),
-                                                 g.launches)])
-            return DetectionOutput(*(None if t is None else t.clone()
-                                     for t in g.out))
+        with span("detect"), torch.inference_mode():
+            with span("detect.inputs"):
+                full = (torch.as_tensor(images),
+                        torch.as_tensor(P_inv).float(),
+                        torch.as_tensor(planes).float())
+                key = tuple((tuple(x.shape), x.dtype) for x in full)
+                inputs = self._select(*full)
+            with torch.cuda.device(self.device):
+                g = self.graphs.get(key)
+                if g is None:
+                    with span("detect.capture"):
+                        g = self.graphs[key] = self._capture(inputs)
+                else:
+                    with span("detect.copy_in"):
+                        for s, x in zip(g.inputs, inputs):
+                            s.copy_(x)
+                with span("detect.replay"):
+                    g.graph.replay()
+                    _set_launches([n + k for n, k in zip(_launch_counts(),
+                                                         g.launches)])
+                with span("detect.copy_out"):
+                    return DetectionOutput(*(None if t is None else t.clone()
+                                             for t in g.out))
 
 
 def _gather(out: DetectionOutput, mesh) -> DetectionOutput:

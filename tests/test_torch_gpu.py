@@ -1174,6 +1174,114 @@ def test_captured_calls_in_flight_keep_their_outputs(cuda):
     assert not np.array_equal(want[0]["boxes"], want[1]["boxes"])
 
 
+def _detect_pair(cuda, monkeypatch, b=2, canvas=(128, 416)):
+    """Two captured calls of one model, the first built and captured with
+    GPP_TRACE unset, the second with GPP_TRACE=1; each has captured its
+    graph."""
+    from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
+                                                          place_model)
+
+    model = place_model(_seeded_detector(), cuda)
+    args = _detect_args(b, canvas, cuda)
+    pair = []
+    for switch in (None, "1"):
+        if switch is None:
+            monkeypatch.delenv("GPP_TRACE", raising=False)
+        else:
+            monkeypatch.setenv("GPP_TRACE", switch)
+        detect = make_detect_fn(model, canvas, with_pose=True,
+                                device_preprocess=True)
+        detect(*args)
+        pair.append(detect)
+    return pair, args
+
+
+@pytest.mark.gpu
+def test_stage_stamps_in_the_captured_call(cuda, tf32_off, monkeypatch):
+    """With GPP_TRACE=1 the captured call stamps its stages inside the
+    graph: its outputs equal the unstamped graph's bit for bit; the ring's
+    counter advances by one a replay, two calls in flight included, with
+    no host sync in a replay; every stage reads above 0 ms and the stages
+    of the calls sum to no more than their wall time."""
+    import time
+
+    from ground_plane_polling_tpu_torch.utils import profiling
+
+    (plain, stamped), args = _detect_pair(cuda, monkeypatch)
+    want = _numpy(plain(*args))
+    ring = profiling._rings[torch.cuda.current_device()]
+    torch.cuda.synchronize()
+    before = int(ring[-1])
+    start = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [stamped(*args), stamped(*args)]  # the second in flight
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    assert int(ring[-1]) == before + 2
+    for out in outs:
+        got = _numpy(out)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    ms = profiling.stage_ms(cuda, last=2)
+    assert ms.shape == (2, 4) and (ms > 0).all(), ms
+    assert ms.sum() <= wall_ms, (ms, wall_ms)
+
+
+@pytest.mark.gpu
+def test_stamps_are_five_kernels_of_the_graph_and_none_without_the_switch(
+        cuda, monkeypatch, tmp_path):
+    """The graphs' nodes (cudaGraphDebugDotPrint): captured with GPP_TRACE
+    unset, no stamp kernel; with GPP_TRACE=1, the same nodes and five
+    stamp kernels more."""
+    real = torch.cuda.CUDAGraph
+
+    def debugged():
+        graph = real(keep_graph=True)
+        graph.enable_debug_mode()
+        return graph
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", debugged)
+    pair, _ = _detect_pair(cuda, monkeypatch, b=1)
+    counts = []
+    for i, detect in enumerate(pair):
+        (g,) = detect.graphs.values()
+        path = tmp_path / f"graph{i}.dot"
+        g.graph.debug_dump(str(path))
+        dot = path.read_text()
+        # a node's label opens with its kind; a kernel's names its function
+        counts.append((dot.count('label="{'), dot.count('label="{KERNEL'),
+                       dot.count("gpp_stage_stamp")))
+    (n0, k0, s0), (n1, k1, s1) = counts
+    assert s0 == 0 and s1 == 5, counts
+    assert (n1 - n0, k1 - k0) == (5, 5), counts
+
+
+@pytest.mark.gpu
+def test_spans_stay_off_the_device_timeline(cuda, monkeypatch):
+    """Under torch.profiler a replayed call's spans are host ranges
+    (gpp.detect holding inputs, copy_in, replay and copy_out), and no
+    device event bears a gpp. name: the device trace holds the call's
+    kernels and copies alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    (plain, _), args = _detect_pair(cuda, monkeypatch, b=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        plain(*args)
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    host = {e.name for e in prof.events() if e.device_type != cuda_type}
+    device = {e.name for e in prof.events() if e.device_type == cuda_type}
+    assert {"gpp.detect", "gpp.detect.inputs", "gpp.detect.copy_in",
+            "gpp.detect.replay", "gpp.detect.copy_out"} <= host
+    assert not any(n.startswith("gpp.") for n in device), device
+
+
 # --- the captured train step (training/train.py, CapturedTrainStep) -------
 
 @pytest.fixture

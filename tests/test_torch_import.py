@@ -159,7 +159,7 @@ def test_backbones_and_host_tools_run_with_jax_blocked(tmp_path):
         "                                                 prepare_split)\n"
         "from ground_plane_polling_tpu_torch.bin import prepare_data\n"
         "from ground_plane_polling_tpu_torch.utils.profiling import (\n"
-        "    StageTimer, trace)\n"
+        "    span, trace)\n"
         "from ground_plane_polling_tpu_torch.utils import version_check\n"
         "names = sorted(backbone_registry())\n"
         "for n in ('tiny', 'vgg16', 'densenet121', 'mobilenet224_0.25'):\n"
@@ -171,7 +171,7 @@ def test_backbones_and_host_tools_run_with_jax_blocked(tmp_path):
         "s = quantize.collect_scales(net, [x])\n"
         "with torch.inference_mode():\n"
         "    c3, c4, c5 = quantize.quantize_apply(net, s)(x)\n"
-        "with trace('t', 'tr'):\n"
+        "with trace('t', 'tr'), span('s'):\n"
         "    torch.ones(2) + 1\n"
         "version_check.assert_compatible('cpu')\n"
         "print(len(names), len(s), tuple(c5.shape), len(os.listdir('tr')))\n",

@@ -10,31 +10,8 @@ import torch
 
 from ground_plane_polling_tpu.utils.version_check import (
     parse_version as jax_parse_version)
-from ground_plane_polling_tpu_torch.utils import profiling, version_check
-from ground_plane_polling_tpu_torch.utils.profiling import StageTimer, trace
-
-
-def test_stage_timer_accumulates():
-    t = StageTimer()
-    x = torch.ones(8, 8)
-    for _ in range(3):
-        with t.stage("matmul") as s:
-            s.result = x @ x
-    assert t.counts["matmul"] == 3
-    assert t.totals["matmul"] > 0
-    assert "matmul" in t.summary() and "(3 calls)" in t.summary()
-
-
-def test_stage_timer_synchronizes_only_cuda_results(monkeypatch):
-    """The devices it waits for: those of the CUDA tensors in the result,
-    however nested; none for CPU tensors."""
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize", calls.append)
-    with StageTimer().stage("cpu") as s:
-        s.result = {"a": (torch.ones(2), [torch.zeros(1)])}
-    assert calls == []
-    fake = torch.empty(2, device="meta")
-    assert profiling._cuda_devices((fake, {"x": 1}), set()) == set()
+from ground_plane_polling_tpu_torch.utils import version_check
+from ground_plane_polling_tpu_torch.utils.profiling import trace
 
 
 def test_trace_noop_without_logdir(tmp_path):
