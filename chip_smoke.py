@@ -199,6 +199,9 @@ import numpy as np
 SEED = 0
 CANVAS = (416, 1344)
 N_PLANES = 21634
+# frozen-BN sites of a ResNet-50 forward (the stem and 3 a block), each a
+# launch of csrc/frozen_bn.cu
+BN_SITES = 49
 # tolerances of the polling comparison (the CPU tests' own)
 RES_TOL = 1e-4
 PLANE_RTOL, PLANE_ATOL = 1e-5, 1e-6
@@ -385,6 +388,85 @@ def full_width_model(torch, seed, cls_std=0.05, backbone="resnet50",
     return model
 
 
+def phase1b_frozen_bn(torch, frozen_bn_cuda):
+    """The frozen-BN kernel (csrc/frozen_bn.cu) at every site shape of
+    ResNet-50's trunk at 416x1344 (tools/frozen_bn_bench.py's SITES), b1
+    and b4, bf16 and float32, seeded non-identity BN (scales in
+    [-0.5, 1.5), some negative; shifts N(0, 0.25)): the wrapper bit for
+    bit against frozen_bn_cuda.plain, one launch a site. Then each bf16
+    site alone against the plain passes and its byte bound at 3.35 TB/s
+    (the tool's `time_site`: CUDA graphs of 20 launches, cold over twice
+    the L2), summed over the 49 sites of a forward."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "frozen_bn_bench", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "frozen_bn_bench.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    assert sum(site[-1] for site in bench.SITES) == BN_SITES, bench.SITES
+
+    log("phase 1b: the frozen-BN kernel against the plain passes at every "
+        f"site shape of ResNet-50's trunk at {CANVAS[0]}x{CANVAS[1]}, b1 and "
+        "b4, bf16 and float32, non-identity BN; then timed per site")
+    dev = torch.device("cuda")
+    zero_launches()
+    checks, worst = 0, 0.0
+    for b in bench.BATCHES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for c, h, w, variant, _ in bench.SITES:
+                gen = torch.Generator().manual_seed(SEED + 1 + c * h + b)
+
+                def vec(scale, offset):
+                    return (torch.rand(c, generator=gen) * scale
+                            + offset).to(dtype).to(dev)
+
+                def fmap():
+                    return torch.randn(b, c, h, w, generator=gen).to(
+                        dtype).to(dev).contiguous(
+                        memory_format=torch.channels_last)
+
+                proj = variant == "projected"
+                args = (fmap(), vec(2.0, -0.5), vec(0.5, -0.25), True,
+                        None if variant == "relu" else fmap(),
+                        vec(2.0, -0.5) if proj else None,
+                        vec(0.5, -0.25) if proj else None)
+                got = frozen_bn_cuda.frozen_bn_act(*args)
+                want = frozen_bn_cuda.plain(*args).contiguous(
+                    memory_format=torch.channels_last)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                assert got.is_contiguous(memory_format=torch.channels_last)
+                assert torch.equal(got.view(bits), want.view(bits)), (
+                    b, dtype, c, h, w, variant)
+                worst = max(worst, float(
+                    (got.float() - want.float()).abs().max()))
+                checks += 1
+    launched = zero_launches()["BN_ACT_LAUNCHES"]
+    assert launched == checks, (launched, checks)
+    log(f"  {checks} sites bit for bit (max |kernel - plain| {worst:g}), "
+        f"{launched} launches, one a site")
+    result = {"checks": checks, "launches": launched, "max_abs_err": worst}
+    for b in bench.BATCHES:
+        sums = dict.fromkeys(("kernel_ms_cold", "kernel_ms_warm",
+                              "plain_ms_cold", "plain_ms_warm", "bound_ms"),
+                             0.0)
+        for c, h, w, variant, n in bench.SITES:
+            out = bench.time_site(b, c, h, w, variant, dev)
+            assert out["equal"], (b, c, h, w, variant)
+            for k in sums:
+                sums[k] += n * out[k]
+        sums["share"] = sums["bound_ms"] / sums["kernel_ms_cold"]
+        result[f"b{b}"] = sums
+        log(f"  b{b}, a forward's {BN_SITES} sites: kernel "
+            f"{sums['kernel_ms_cold']:.4f} ms cold, "
+            f"{sums['kernel_ms_warm']:.4f} warm; plain passes "
+            f"{sums['plain_ms_cold']:.4f} / {sums['plain_ms_warm']:.4f}; "
+            f"bound {sums['bound_ms']:.4f} ms (bytes at 3.35 TB/s, "
+            f"{100 * sums['share']:.1f}% reached)")
+    zero_launches()
+    return result
+
+
 def phase2_main_path(torch, polling_cuda):
     from ground_plane_polling_tpu_torch.inference import (make_detect_fn,
                                                           place_model)
@@ -438,9 +520,11 @@ def phase2_main_path(torch, polling_cuda):
     per_call = launches / (len(runs) * n_iter)
     assert launches == 2 * n_iter, f"polling kernel launched {launches} times"
     assert counts["NMS_LAUNCHES"] == 2 * n_iter, counts
+    assert counts["BN_ACT_LAUNCHES"] == BN_SITES * 2 * n_iter, counts
     log(f"  kernel launches in the main path (captured calls): polling "
         f"{launches}, NMS {counts['NMS_LAUNCHES']}, {per_call:g} of each per "
-        "detect call")
+        f"detect call; frozen BN {counts['BN_ACT_LAUNCHES']}, "
+        f"{counts['BN_ACT_LAUNCHES'] // (2 * n_iter)} a call")
 
     log("phase 2b: float32, TF32 off, canvas 128x416: card against CPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -4146,8 +4230,8 @@ def held_captured(torch, detect, args, label, int8_sites=None):
     orientations equal, the float fields' gaps (0 unless the eager call
     itself does not repeat bit for bit, and then within phase 3's
     tolerances), no host sync in a replay (torch.cuda's sync debug mode),
-    one polling and one NMS launch a replay (`int8_sites` of each int8
-    kernel), host API calls and device operations a call, ms a call in
+    one polling and one NMS launch a replay, BN_SITES of the frozen-BN
+    kernel (a ResNet-50 forward), `int8_sites` of each int8 kernel, host API calls and device operations a call, ms a call in
     turns eager / captured / captured / eager, device ms and idle share."""
     t0 = time.perf_counter()
     detect(*args)  # warm-up and capture, then the first replay
@@ -4174,6 +4258,7 @@ def held_captured(torch, detect, args, label, int8_sites=None):
     assert syncs == [], (label, syncs)
     assert launches["LAUNCHES"] == 1 and launches["NMS_LAUNCHES"] == 1, \
         (label, launches)
+    assert launches["BN_ACT_LAUNCHES"] == BN_SITES, (label, launches)
     if int8_sites is not None:
         assert (launches["QUANTIZE_LAUNCHES"], launches["CONV_LAUNCHES"]
                 ) == (int8_sites,) * 2, (label, launches)
@@ -4397,7 +4482,8 @@ def main(argv=None):
             os._exit(1)
     from concurrent.futures import ThreadPoolExecutor
 
-    from ground_plane_polling_tpu_torch.kernels import (int8_conv_cuda,
+    from ground_plane_polling_tpu_torch.kernels import (frozen_bn_cuda,
+                                                        int8_conv_cuda,
                                                         int8_depthwise_cuda,
                                                         nms_cuda,
                                                         polling_cases,
@@ -4425,7 +4511,8 @@ def main(argv=None):
             lib, error = None, str(e)
         return lib, time.perf_counter() - t0, error
 
-    modules = [polling_cuda, int8_conv_cuda, int8_depthwise_cuda, nms_cuda]
+    modules = [polling_cuda, int8_conv_cuda, int8_depthwise_cuda, nms_cuda,
+               frozen_bn_cuda]
     other = other_dw = other_nms = None
     if args.against:
         other, other_dw, other_nms = load_int8_tree(args.against,
@@ -4458,6 +4545,7 @@ def main(argv=None):
     if args.dp_cards:
         return dp_cards(torch, polling_cuda, smi, args.dp_cards, args.phase)
     kernel = phase1_kernel(torch, polling_cuda, twin, polling_cases)
+    bn = phase1b_frozen_bn(torch, frozen_bn_cuda)
     counts, per_call, _ = phase2_main_path(torch, polling_cuda)
     launches = counts["LAUNCHES"]
     calls = {}
@@ -4641,6 +4729,39 @@ def main(argv=None):
             "device_ops_other_nms", "host_syncs", "eager_host_syncs",
             "capture_s")}
             for label, r in captured["13b"].items()},
+    }, {
+        "name": "frozen_bn",
+        "route": "cuda",
+        "source": "ground_plane_polling_tpu_torch/csrc/frozen_bn.cu",
+        # no TPU kernel: the jnp BN, shortcut add and ReLU of a block,
+        # which XLA fuses on the TPU
+        "replaces": "ground_plane_polling_tpu/models/resnet.py:52",
+        # phase 2's main path: 10 b1 and 10 b4 captured calls
+        "launches": counts["BN_ACT_LAUNCHES"],
+        # phase 1b: every trunk site shape, b1 and b4, bf16 and float32,
+        # against the plain passes
+        "max_abs_err": bn["max_abs_err"],
+        # per b1 bf16 forward: the sum over its 49 sites, cold
+        "ms": bn["b1"]["kernel_ms_cold"],
+        "plain_ms": bn["b1"]["plain_ms_cold"],
+        "bound_ms": bn["b1"]["bound_ms"],
+        "bound_by": "bytes",
+        # no one PyTorch call does a site's BN, shortcut and ReLU; the
+        # plain passes it replaces are PyTorch's own kernels (plain_ms)
+        "library_ms": None,
+        "launches_per_call": BN_SITES,
+        "ms_warm": bn["b1"]["kernel_ms_warm"],
+        "b4": {k: bn["b4"][k] for k in ("kernel_ms_cold", "kernel_ms_warm",
+                                        "plain_ms_cold", "plain_ms_warm",
+                                        "bound_ms", "share")},
+        "sites_checked": bn["checks"],
+        # phase 13b and phase 9d, a replay each
+        "launches_captured": {
+            label: r["launches"]["BN_ACT_LAUNCHES"]
+            for label, r in captured["13b"].items()},
+        "launches_mesh_captured": {
+            label: r["launches"]["BN_ACT_LAUNCHES"]
+            for label, r in parallel["9a"]["9d"].items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,8 +41,8 @@ import torch
 
 from .data.frames import resize_uint8, uint8_canvas
 from .data.kitti import BGR_MEAN, preprocess_image, resize_scale
-from .kernels import (int8_conv_cuda, int8_depthwise_cuda, nms_cuda,
-                      polling_cuda)
+from .kernels import (frozen_bn_cuda, int8_conv_cuda, int8_depthwise_cuda,
+                      nms_cuda, polling_cuda)
 from .models import build_detector, init_detector, load_state, read_weights
 from .models.quantize import collect_scales, quantize_apply
 from .ops import anchors as anchor_ops
@@ -252,7 +252,8 @@ def make_detect_fn(
 LAUNCH_COUNTERS = ((polling_cuda, "LAUNCHES"), (nms_cuda, "NMS_LAUNCHES"),
                    (int8_conv_cuda, "QUANTIZE_LAUNCHES"),
                    (int8_conv_cuda, "CONV_LAUNCHES"),
-                   (int8_depthwise_cuda, "DEPTHWISE_LAUNCHES"))
+                   (int8_depthwise_cuda, "DEPTHWISE_LAUNCHES"),
+                   (frozen_bn_cuda, "BN_ACT_LAUNCHES"))
 
 
 def _launch_counts():

@@ -20,12 +20,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import width
-from .common import FrozenBatchNorm
+from .common import FrozenBatchNorm, frozen_bn_act
 from .width import same_pad, same_padding
 
 __all__ = ["ResNetBackbone", "RESNET_STAGES", "same_pad", "same_padding"]
@@ -61,13 +60,13 @@ class BottleneckBlock(nn.Module):
             self.conv_proj = None
 
     def forward(self, x):
-        shortcut = x
+        shortcut, shortcut_bn = x, None
         if self.conv_proj is not None:
-            shortcut = self.bn_proj(self.conv_proj(x))
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + shortcut)
+            shortcut, shortcut_bn = self.conv_proj(x), self.bn_proj
+        y = frozen_bn_act(self.conv1(x), self.bn1, relu=True)
+        y = frozen_bn_act(self.conv2(y), self.bn2, relu=True)
+        return frozen_bn_act(self.conv3(y), self.bn3, relu=True,
+                             residual=shortcut, residual_bn=shortcut_bn)
 
 
 class ResNetBackbone(nn.Module):
@@ -93,7 +92,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x):
         x = x.to(self.conv1.weight.dtype)  # the compute dtype of the weights
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = frozen_bn_act(self.conv1(x), self.bn1, relu=True)
         x = width.pool2d(x, "max", 3, 2)
         outputs = []
         for stage, n_blocks in enumerate(self.stage_sizes):
